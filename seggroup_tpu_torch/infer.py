@@ -1,0 +1,88 @@
+"""Stage-1 pseudo-label inference entry points.
+
+`entry` is the port's counterpart of __graft_entry__.entry(); `infer_scenes`
+runs the stage-1 forward per scene and writes the reference's label-file
+layout (cli/stage1_common.py export_labels_txt / export_scene):
+results/<scene>/<mode>/{final,layer_L}.{sem,ins,seg}.txt."""
+
+from __future__ import annotations
+
+import os
+import time
+from collections.abc import Sequence
+
+import numpy as np
+import torch
+
+from seggroup_tpu_torch.data.synthetic import make_synthetic_scene
+from seggroup_tpu_torch.device import resolve_device
+from seggroup_tpu_torch.models.seggroup import SegGroupGNN, Stage1Output
+from seggroup_tpu_torch.types import Scene
+
+
+def entry(device: str | torch.device = "cuda"):
+    """(fn, example_args): the flagship stage-1 forward in ins_infer mode on
+    a small synthetic scene, on the card unless device='cpu'."""
+    dev = resolve_device(device)
+    model = SegGroupGNN(cluster_cap=256, device=dev)
+    scene = make_synthetic_scene(
+        seed=0, num_points=2048, num_slots=64, num_edges=256,
+        num_instances=4, segs_per_instance=4).to(dev)
+
+    def fn(model, scene):
+        out = model(scene, mode="ins_infer")
+        return out.loss_sum, out.final_sem, out.iou_sem
+
+    return fn, (model, scene)
+
+
+def export_labels_txt(out_dir: str, stem: str, labels: np.ndarray) -> None:
+    os.makedirs(out_dir, exist_ok=True)
+    body = "\n".join(map(str, np.asarray(labels, np.int64).tolist()))
+    with open(os.path.join(out_dir, stem + ".txt"), "w") as f:
+        f.write(body + "\n")
+
+
+def export_scene(results_root: str, scene_name: str, stage: str,
+                 out: Stage1Output) -> None:
+    """Write final and per-layer label files of one scene under
+    results_root/<scene_name>/<stage>/ (reference model.py:688-691)."""
+    out_dir = os.path.join(results_root, scene_name, stage)
+
+    def host(t):
+        return t.cpu().numpy()
+
+    export_labels_txt(out_dir, "final.sem", host(out.final_sem))
+    export_labels_txt(out_dir, "final.ins", host(out.final_ins))
+    export_labels_txt(out_dir, "final.seg", host(out.final_root))
+    for li in range(out.layer_roots.shape[0]):
+        export_labels_txt(out_dir, f"layer_{li+1}.seg", host(out.layer_roots[li]))
+        export_labels_txt(out_dir, f"layer_{li+1}.sem", host(out.layer_sem[li]))
+        export_labels_txt(out_dir, f"layer_{li+1}.ins", host(out.layer_ins[li]))
+
+
+def infer_scenes(
+    model: SegGroupGNN,
+    scenes: Sequence[Scene],
+    mode: str = "ins_infer",
+    results_root: str | None = None,
+    names: Sequence[str] | None = None,
+    phase_seconds: dict | None = None,
+) -> list[Stage1Output]:
+    """Run the forward on each scene (moved to the model's device). With
+    `results_root`, write each scene's labels under
+    results_root/<name>/<mode>/, names defaulting to scene_0000, ...
+    `phase_seconds` is passed to the forward (see SegGroupGNN.forward), and
+    the export's wall seconds are added to it under "export"."""
+    outs = []
+    for i, scene in enumerate(scenes):
+        out = model(scene.to(model.device), mode=mode, phase_seconds=phase_seconds)
+        if results_root is not None:
+            name = names[i] if names is not None else f"scene_{i:04d}"
+            t0 = time.perf_counter()
+            export_scene(results_root, name, mode, out)
+            if phase_seconds is not None:
+                phase_seconds["export"] = (phase_seconds.get("export", 0.0)
+                                           + time.perf_counter() - t0)
+        outs.append(out)
+    return outs

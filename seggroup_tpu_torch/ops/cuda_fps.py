@@ -1,0 +1,101 @@
+"""Kernel K1, masked farthest-point sampling, as a hand-written CUDA kernel
+for Hopper: the counterpart of seggroup_tpu/ops/pallas_fps.py.
+
+The source is `csrc/fps.cu` (its header states the design and the bound).
+It is compiled at first use with nvcc for sm_90a into `_build/`, loaded with
+ctypes and launched on the current stream. `launches` counts the launches
+made through `masked_fps_cuda`."""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+_PKG = Path(__file__).resolve().parents[1]
+SOURCE = _PKG / "csrc" / "fps.cu"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+launches = 0
+_lib = None
+
+
+def _nvcc() -> str:
+    nvcc = shutil.which("nvcc")
+    if nvcc is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
+        nvcc = "/usr/local/cuda/bin/nvcc"
+    if nvcc is None:
+        raise RuntimeError("nvcc not found: the FPS kernel cannot be built")
+    return nvcc
+
+
+def build() -> tuple[Path, str]:
+    """Compile csrc/fps.cu (once per source content) and return the shared
+    library's path and the compiler's output ('' when it was built before)."""
+    src = SOURCE.read_bytes()
+    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    lib = BUILD_DIR / f"libseggroup_fps_{tag}.so"
+    if lib.exists():
+        return lib, ""
+    BUILD_DIR.mkdir(exist_ok=True)
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {SOURCE}:\n{proc.stderr}")
+    os.replace(tmp, lib)
+    return lib, proc.stderr
+
+
+def _load():
+    global _lib
+    if _lib is None:
+        path, _ = build()
+        lib = ctypes.CDLL(str(path))
+        lib.seggroup_masked_fps.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        lib.seggroup_masked_fps.restype = ctypes.c_int
+        lib.seggroup_fps_max_points.argtypes = []
+        lib.seggroup_fps_max_points.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def masked_fps_cuda(points: torch.Tensor, valid: torch.Tensor, k: int) -> torch.Tensor:
+    """(B, P, D>=3) points + (B, P) bool valid -> (B, k) int32 indices into
+    P, computed by the CUDA kernel on the tensors' card. xyz are the first
+    three columns, as masked_fps_pallas takes them."""
+    global launches
+    if not (points.is_cuda and valid.is_cuda and points.device == valid.device):
+        raise ValueError("masked_fps_cuda takes CUDA tensors on one device")
+    if points.ndim != 3 or points.shape[-1] < 3:
+        raise ValueError(f"points must be (B, P, D>=3), got {tuple(points.shape)}")
+    if valid.dtype != torch.bool or tuple(valid.shape) != tuple(points.shape[:2]):
+        raise ValueError("valid must be a bool (B, P) mask")
+    b, p, _ = points.shape
+    if k < 1 or p < 1:
+        raise ValueError(f"need k >= 1 and P >= 1, got k={k}, P={p}")
+    lib = _load()
+    if p > lib.seggroup_fps_max_points():
+        raise ValueError(f"P={p} exceeds the kernel's "
+                         f"{lib.seggroup_fps_max_points()} candidates per row")
+    xyz = points[..., :3].to(torch.float32).contiguous()
+    vmask = valid.contiguous()
+    out = torch.empty((b, k), dtype=torch.int32, device=points.device)
+    if b == 0:
+        return out
+    stream = torch.cuda.current_stream(points.device).cuda_stream
+    err = lib.seggroup_masked_fps(xyz.data_ptr(), vmask.data_ptr(), out.data_ptr(),
+                                  b, p, k, points.device.index or 0, stream)
+    if err != 0:
+        raise RuntimeError(f"FPS kernel launch failed with cudaError {err}")
+    launches += 1
+    return out

@@ -1,0 +1,71 @@
+"""Profile one stage-1 ins_infer forward at the bench scene size on the card.
+
+    python -m seggroup_tpu_torch.profile_stage1 [--seed 0] [--top 15]
+
+Prints the forward's wall seconds with and without the profiler, the summed
+device kernel time, the device's busy share (kernel time over the wall time
+without the profiler, which does not inflate it, and over the profiled wall
+time), the number of kernel launches, and the kernels that take the most
+device time; the last line is the same as one JSON object."""
+
+from __future__ import annotations
+
+import argparse
+import json
+import time
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from seggroup_tpu_torch.data.synthetic import BENCH_SCENE, make_synthetic_scene
+from seggroup_tpu_torch.device import card_description, resolve_device
+from seggroup_tpu_torch.models.seggroup import SegGroupGNN
+
+
+def _forward_seconds(model, scene) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model(scene, mode="ins_infer")
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--top", type=int, default=15)
+    args = ap.parse_args(argv)
+
+    dev = resolve_device("cuda")
+    card = card_description()
+    scene = make_synthetic_scene(seed=args.seed, **BENCH_SCENE).to(dev)
+    model = SegGroupGNN(device=dev)
+    _forward_seconds(model, scene)  # warm-up
+    plain_s = _forward_seconds(model, scene)
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        profiled_s = _forward_seconds(model, scene)
+
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_us = sum(e.self_device_time_total for e in kernels)
+    launches = sum(e.count for e in kernels)
+    kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    print(f"stage-1 ins_infer forward, {BENCH_SCENE['num_points']} points, on {card}")
+    print(f"wall {plain_s:.4f} s without the profiler, {profiled_s:.4f} s with it")
+    device_s = device_us / 1e6
+    print(f"device kernel time {device_s:.4f} s over {launches} launches; "
+          f"busy share {device_s / plain_s:.4f} of the wall time without the "
+          f"profiler, {device_s / profiled_s:.4f} of the profiled wall time")
+    top = []
+    for e in kernels[:args.top]:
+        print(f"  {e.self_device_time_total / 1e3:10.3f} ms {e.count:7d}x  {e.key[:100]}")
+        top.append({"kernel": e.key[:100], "ms": e.self_device_time_total / 1e3,
+                    "count": e.count})
+    print(json.dumps({"card": card, "wall_s": plain_s, "profiled_wall_s": profiled_s,
+                      "device_s": device_s, "busy_share": device_s / plain_s,
+                      "launches": launches, "top": top}))
+
+
+if __name__ == "__main__":
+    main()

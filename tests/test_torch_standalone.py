@@ -1,0 +1,68 @@
+"""The port stands alone: it imports neither JAX nor the JAX package, and its
+entry points run on the card unless the caller asks for the CPU."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "seggroup_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "flax", "seggroup_tpu")
+
+
+def test_import_leaves_jax_out():
+    code = (
+        "import sys\n"
+        "import seggroup_tpu_torch.infer, seggroup_tpu_torch.models.convert\n"
+        "import seggroup_tpu_torch.ops.cuda_fps, chip_smoke\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
+        "assert not bad, bad\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_file_imports_jax(path):
+    """No import statement, and no import by name, reaches JAX or the JAX
+    package (`seggroup_tpu`, not `seggroup_tpu_torch`)."""
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        names = []
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names = [node.module]
+        elif (isinstance(node, ast.Call) and node.args
+              and isinstance(node.args[0], ast.Constant)
+              and isinstance(node.args[0].value, str)
+              and getattr(node.func, "attr", getattr(node.func, "id", "")) in
+              ("import_module", "__import__")):
+            names = [node.args[0].value]
+        for name in names:
+            assert name.split(".")[0] not in FORBIDDEN, (path, name)
+
+
+def test_entry_points_default_to_the_card():
+    """Without device=, an entry point runs on CUDA, and raises where there
+    is none instead of falling back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    from seggroup_tpu_torch.data.synthetic import make_synthetic_scene
+    from seggroup_tpu_torch.infer import entry
+    from seggroup_tpu_torch.models.seggroup import SegGroupGNN
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        entry()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SegGroupGNN()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_synthetic_scene(num_points=64, num_slots=8, num_edges=16,
+                             num_instances=2, segs_per_instance=2).to()
