@@ -3,6 +3,8 @@
 from __future__ import annotations
 
 import subprocess
+import time
+from contextlib import contextmanager
 
 import torch
 
@@ -32,3 +34,27 @@ def card_description() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout
     return out.strip().splitlines()[0]
+
+
+class PhaseClock:
+    """Adds the wall seconds of named phases to a dict, synchronising the
+    device around each; does nothing without a dict."""
+
+    def __init__(self, device: torch.device, sink: dict | None):
+        self.device = device
+        self.sink = sink
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    @contextmanager
+    def __call__(self, name: str):
+        if self.sink is None:
+            yield
+            return
+        self._sync()
+        t0 = time.perf_counter()
+        yield
+        self._sync()
+        self.sink[name] = self.sink.get(name, 0.0) + time.perf_counter() - t0

@@ -1,4 +1,5 @@
-"""Weights of the JAX SegGroupGNN -> state_dict of the port's SegGroupGNN.
+"""Weights of the JAX models -> state_dicts of the port's: SegGroupGNN
+(`params_from_flax`) and MinkUNet (`minkunet_params_from_flax`).
 
 The JAX variables are `{"params": ..., "batch_stats": ...}` trees of numpy
 arrays (`jax.tree.map(np.asarray, variables)`). Flax `Dense` kernels are
@@ -47,4 +48,32 @@ def params_from_flax(variables: Mapping) -> dict[str, torch.Tensor]:
             out[f"{mod}.{name}.bias"] = t(params[mod][name]["bias"])
             out[f"{mod}.{name}.mean"] = t(stats[mod][name]["mean"])
             out[f"{mod}.{name}.var"] = t(stats[mod][name]["var"])
+    return out
+
+
+def _flatten(tree: Mapping, prefix: tuple = ()):
+    for key, value in tree.items():
+        if isinstance(value, Mapping):
+            yield from _flatten(value, prefix + (key,))
+        else:
+            yield prefix + (key,), value
+
+
+def minkunet_params_from_flax(variables: Mapping) -> dict[str, torch.Tensor]:
+    """state_dict of models.minkunet.MinkUNet from the flax MinkUNet's
+    `{"params", "batch_stats"}` trees. The port keeps the flax names, so a
+    path maps to its dotted key: submanifold and strided kernels
+    (`conv0/kernel`, `conv1s2_kernel`, `block1_0/conv1/kernel`, ...) keep
+    their (K, Cin, Cout) layout; Dense kernels (2-D: `downsample`,
+    Bottleneck `conv1`/`conv3`, `final`) become `.weight`, transposed;
+    biases, BatchNorm `scale`/`bias` and `mean`/`var` go across as they are."""
+    out = {}
+    for path, x in _flatten(variables["params"]):
+        x = torch.from_numpy(np.array(x, dtype=np.float32))
+        if path[-1] == "kernel" and x.ndim == 2:
+            out[".".join(path[:-1] + ("weight",))] = x.T.contiguous()
+        else:
+            out[".".join(path)] = x
+    for path, x in _flatten(variables.get("batch_stats", {})):
+        out[".".join(path)] = torch.from_numpy(np.array(x, dtype=np.float32))
     return out

@@ -17,15 +17,13 @@ exports add +1 so 0 means unannotated."""
 from __future__ import annotations
 
 import math
-import time
-from contextlib import contextmanager
 from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from seggroup_tpu_torch.device import resolve_device
+from seggroup_tpu_torch.device import PhaseClock, resolve_device
 from seggroup_tpu_torch.ops import grouping as gr
 from seggroup_tpu_torch.ops.fps import masked_fps
 from seggroup_tpu_torch.ops.knn import cluster_knn, knn_brute, morton3d
@@ -317,7 +315,7 @@ class SegGroupGNN(nn.Module):
             raise NotImplementedError(f"mode={mode!r} is not ported")
         if scene.points.device != self.device:
             raise ValueError(f"scene on {scene.points.device}, model on {self.device}")
-        phase = _PhaseClock(self.device, phase_seconds)
+        phase = PhaseClock(self.device, phase_seconds)
         s = scene.num_slots
         pts = scene.points
         pt_valid = scene.point2seg < s
@@ -435,30 +433,6 @@ class SegGroupGNN(nn.Module):
         sem = torch.where(pt_valid & (sem != -1), sem + 1, -1)
         ins = torch.where(pt_valid & (ins != -1), ins + 1, -1)
         return sem.to(torch.int32), ins.to(torch.int32)
-
-
-class _PhaseClock:
-    """Adds the wall seconds of named phases to a dict, synchronising the
-    device around each; does nothing without a dict."""
-
-    def __init__(self, device: torch.device, sink: dict | None):
-        self.device = device
-        self.sink = sink
-
-    def _sync(self):
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-
-    @contextmanager
-    def __call__(self, name: str):
-        if self.sink is None:
-            yield
-            return
-        self._sync()
-        t0 = time.perf_counter()
-        yield
-        self._sync()
-        self.sink[name] = self.sink.get(name, 0.0) + time.perf_counter() - t0
 
 
 def evaluate_labels(

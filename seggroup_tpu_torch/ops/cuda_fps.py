@@ -2,63 +2,35 @@
 for Hopper: the counterpart of seggroup_tpu/ops/pallas_fps.py.
 
 The source is `csrc/fps.cu` (its header states the design and the bound).
-It is compiled at first use with nvcc for sm_90a into `_build/`, loaded with
-ctypes and launched on the current stream. `launches` counts the launches
-made through `masked_fps_cuda`."""
+It is compiled at first use with nvcc for sm_90a into `_build/`
+(`cuda_build`), loaded with ctypes and launched on the current stream.
+`launches` counts the launches made through `masked_fps_cuda`."""
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 from pathlib import Path
 
 import torch
 
-_PKG = Path(__file__).resolve().parents[1]
-SOURCE = _PKG / "csrc" / "fps.cu"
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+from seggroup_tpu_torch import cuda_build
+
+SOURCE = cuda_build.CSRC / "fps.cu"
 
 launches = 0
 _lib = None
 
 
-def _nvcc() -> str:
-    nvcc = shutil.which("nvcc")
-    if nvcc is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
-        nvcc = "/usr/local/cuda/bin/nvcc"
-    if nvcc is None:
-        raise RuntimeError("nvcc not found: the FPS kernel cannot be built")
-    return nvcc
-
-
 def build() -> tuple[Path, str]:
     """Compile csrc/fps.cu (once per source content) and return the shared
     library's path and the compiler's output ('' when it was built before)."""
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"libseggroup_fps_{tag}.so"
-    if lib.exists():
-        return lib, ""
-    BUILD_DIR.mkdir(exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {SOURCE}:\n{proc.stderr}")
-    os.replace(tmp, lib)
-    return lib, proc.stderr
+    return cuda_build.build(SOURCE, "libseggroup_fps")
 
 
 def _load():
     global _lib
     if _lib is None:
-        path, _ = build()
-        lib = ctypes.CDLL(str(path))
+        lib = cuda_build.load(SOURCE, "libseggroup_fps")
         lib.seggroup_masked_fps.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]

@@ -1,0 +1,294 @@
+"""Gather-GEMM-scatter sparse convolution engine, forward
+(seggroup_tpu/sparse/conv.py).
+
+  * Rulebooks: an (M, K) neighbour-row table per kernel, built from sorted
+    coordinate keys (sparse/hashing.py); absent neighbours and invalid rows
+    hold M. They are exactly the JAX side's.
+  * `subm_conv`: out[i] = sum_k W[k]^T feats[nbr[i,k]], bf16 operands by
+    default, float32 sums. On a CUDA tensor it launches kernel K2
+    (sparse/cuda_subm_conv.py) or raises; on a CPU tensor it runs the plain
+    version `subm_conv_plain`.
+  * Stride-2 kernel-2 down and up convs partition the fine voxels: down is a
+    segment sum over out = in // 2, up one gather. They run in float32 with
+    torch ops, as the JAX side runs them outside any Pallas kernel.
+
+Not ported here: the backward (custom VJP), the windowed Pallas plans
+(`windows=`, sparse/plan.py, device_plan.py), the merge-join rulebook path
+(`assume_sorted=True`), the 5-column spatio-temporal coords, BN statistics
+and global pooling."""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from seggroup_tpu_torch.ops.segment_ops import invert_permutation, segment_sum
+from seggroup_tpu_torch.sparse import cuda_subm_conv
+from seggroup_tpu_torch.sparse.hashing import (INT32_MAX, lookup, lower_bound,
+                                               pack_keys, sort_coords)
+from seggroup_tpu_torch.sparse.tensor import SparseTensor
+
+
+def kernel_offsets(kernel_size: int) -> np.ndarray:
+    """(K, 3) integer offsets, centered for odd kernels ({-1,0,1} for 3)."""
+    r = np.arange(kernel_size) - (kernel_size - 1) // 2
+    g = np.stack(np.meshgrid(r, r, r, indexing="ij"), -1).reshape(-1, 3)
+    return g.astype(np.int32)
+
+
+def region_offsets(conv_type: str, kernel_size: int = 3,
+                   ndim: int = 3) -> np.ndarray:
+    """(K, ndim) kernel-region offsets for the reference's ConvType zoo:
+    'hypercube', 'hypercross', 'spatial_hypercube',
+    'spatial_hypercube_temporal_hypercross' (and the spatio_temporal_*
+    names), sorted lexicographically."""
+    r = np.arange(kernel_size) - (kernel_size - 1) // 2
+    if conv_type in ("hypercube", "spatio_temporal_hypercube"):
+        grids = np.meshgrid(*([r] * ndim), indexing="ij")
+        offs = np.stack(grids, -1).reshape(-1, ndim)
+    elif conv_type in ("hypercross", "spatio_temporal_hypercross"):
+        offs = [np.zeros(ndim, np.int64)]
+        for d in range(ndim):
+            for s in r[r != 0]:
+                o = np.zeros(ndim, np.int64)
+                o[d] = s
+                offs.append(o)
+        offs = np.stack(offs)
+    elif conv_type in ("spatial_hypercube", "spatial_hypercube_temporal_hypercross"):
+        cube = np.stack(np.meshgrid(r, r, r, indexing="ij"), -1).reshape(-1, 3)
+        if ndim == 3:
+            offs = cube
+        else:
+            offs = np.concatenate([cube, np.zeros((len(cube), 1), np.int64)], 1)
+            if conv_type == "spatial_hypercube_temporal_hypercross":
+                t_arm = np.asarray([[0, 0, 0, -1], [0, 0, 0, 1]], np.int64)
+                offs = np.concatenate([offs, t_arm], 0)
+    else:
+        raise ValueError(f"unknown conv_type {conv_type!r}")
+    order = np.lexsort(offs.T[::-1])
+    return offs[order].astype(np.int32)
+
+
+_CUBE_TYPES = ("hypercube", "spatial_hypercube", "spatial_hypercube_temporal_hypercross")
+
+
+def build_subm_rulebook(st: SparseTensor, kernel_size: int = 3,
+                        assume_sorted: bool = False,
+                        conv_type: str = "spatial_hypercube",
+                        xy_bits: tuple[int, int] = (14, 14)) -> torch.Tensor:
+    """(M, K) int32 neighbour row per kernel offset; == M where absent.
+    Output sites == input sites (submanifold semantics). Kernel 3 takes the
+    grouped z-run search (8 lower bounds for 27 offsets), other cube kernels
+    the generic per-offset lookup."""
+    if assume_sorted:
+        raise NotImplementedError("the assume_sorted (merge-join) path is not ported")
+    ndim = st.coords.shape[1] - 1
+    if ndim == 3 and kernel_size == 3 and conv_type in _CUBE_TYPES:
+        return _build_subm_rulebook_k3(st, xy_bits)
+    if ndim == 3 and conv_type in _CUBE_TYPES:
+        return build_subm_rulebook_offsets(st, kernel_offsets(kernel_size))
+    return build_subm_rulebook_offsets(st, region_offsets(conv_type, kernel_size, ndim))
+
+
+def _build_subm_rulebook_k3(st: SparseTensor, xy_bits=(14, 14)) -> torch.Tensor:
+    m = st.capacity
+    dev = st.coords.device
+    hi, lo = pack_keys(st.coords, xy_bits)
+    order, hi_s, lo_s = sort_coords(st.coords, st.valid, xy_bits)
+    rank = invert_permutation(order)
+    big = torch.full((1,), INT32_MAX, dtype=torch.int32, device=dev)
+    order_pad = torch.cat([order, torch.full((1,), m, dtype=torch.int32, device=dev)])
+    hi_pad = torch.cat([hi_s, big])
+    lo_pad = torch.cat([lo_s, big])
+    cols = _k3_cols_searched(st, hi, lo, hi_s, lo_s, order_pad, hi_pad, lo_pad,
+                             rank, xy_bits)
+    return cols.T.contiguous().to(torch.int32)
+
+
+def _k3_cols_searched(st, hi, lo, hi_s, lo_s, order_pad, hi_pad, lo_pad,
+                      rank, xy_bits=(14, 14)):
+    """(27, M) columns via the binary-search path (any row order)."""
+    m = st.capacity
+    x, y, z = st.coords[:, 1], st.coords[:, 2], st.coords[:, 3]
+
+    def resolve(p0, q_hi):
+        """Given p0 = lower_bound(q_hi, lo - 1), match dz in {-1, 0, +1}:
+        valid keys strictly increase, so the (up to) three hits sit at
+        consecutive positions from p0. Returns three (..., M) row tensors."""
+        cand = [torch.clamp(p0 + t, 0, m).long() for t in range(3)]
+        ch = [hi_pad[c] for c in cand]
+        cl = [lo_pad[c] for c in cand]
+        cols = []
+        for dz in (-1, 0, 1):
+            tgt = lo + dz
+            row = torch.full(q_hi.shape, m, dtype=torch.int32, device=q_hi.device)
+            for t in range(3):
+                hit = (ch[t] == q_hi) & (cl[t] == tgt)
+                row = torch.where((row == m) & hit, order_pad[cand[t]], row)
+            ok = st.valid & (z + dz >= 0)
+            cols.append(torch.where(ok, row, m))
+        return cols
+
+    cols_by_offset = {}
+    # centre (dx, dy) group: positions are self rank -1 / self / +1, no search
+    for dz, col in zip((-1, 0, 1), resolve(rank - 1, hi)):
+        cols_by_offset[(0, 0, dz)] = col
+    # the 8 off-centre (dx, dy) groups, one lower bound each, all at once;
+    # the query keys wrap in int32 exactly as on the JAX side
+    dxy = [(dx, dy) for dx in (-1, 0, 1) for dy in (-1, 0, 1) if (dx, dy) != (0, 0)]
+    yb = xy_bits[1]
+    shift = torch.tensor([(dx << yb) + dy for dx, dy in dxy], dtype=torch.int32,
+                         device=hi.device)
+    q_hi = hi[None, :] + shift[:, None]  # (8, M)
+    p0 = lower_bound(hi_s, lo_s, q_hi, (lo - 1)[None, :].expand_as(q_hi))
+    rows = resolve(p0, q_hi)  # 3 x (8, M)
+    for gi, (dx, dy) in enumerate(dxy):
+        ok_xy = (x + dx >= 0) & (y + dy >= 0)
+        for t, dz in enumerate((-1, 0, 1)):
+            cols_by_offset[(dx, dy, dz)] = torch.where(ok_xy, rows[t][gi], m)
+    return torch.stack([cols_by_offset[tuple(int(v) for v in o)]
+                        for o in kernel_offsets(3)])  # (27, M)
+
+
+def build_subm_rulebook_offsets(st: SparseTensor, offsets: np.ndarray) -> torch.Tensor:
+    """(M, K) rulebook for an explicit (K, 3) offset list over (M, 4) coords:
+    one exact lookup per offset."""
+    order, hi_s, lo_s = sort_coords(st.coords, st.valid)
+    m = st.capacity
+    offs = torch.as_tensor(np.asarray(offsets), dtype=torch.int32, device=st.coords.device)
+    cols = []
+    for off in offs:
+        q = st.coords.clone()
+        q[:, 1:] += off[None, :]
+        in_range = torch.all(q[:, 1:] >= 0, dim=1)  # negative coords never pack
+        q_hi, q_lo = pack_keys(q)
+        pos = lookup(hi_s, lo_s, q_hi, q_lo)  # sorted positions or M
+        idx = torch.where(pos < m, order[torch.clamp(pos, max=m - 1).long()], m)
+        cols.append(torch.where(st.valid & in_range, idx, m))
+    return torch.stack(cols, dim=1).to(torch.int32)
+
+
+# --- submanifold conv --------------------------------------------------------
+
+# rows per gather + matmul tile of the plain version: bounds the transient
+# (chunk, K, Cin) block, as the JAX side's lax.map does
+SUBM_CHUNK = 16384
+
+
+def subm_conv_plain(feats: torch.Tensor, weights: torch.Tensor, rulebook: torch.Tensor,
+                    compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """K2's plain version (`_subm_apply` of the JAX side): feats (M, Cin)
+    and weights (K, Cin, Cout) rounded to `compute_dtype`, absent neighbours
+    reading a zero pad row M, products summed in float32, SUBM_CHUNK rows at
+    a time. Returns (M, Cout) float32."""
+    m, cin = feats.shape
+    kvol, _, cout = weights.shape
+    feats_pad = torch.cat([feats.to(compute_dtype),
+                           feats.new_zeros((1, cin), dtype=compute_dtype)])
+    w = weights.to(compute_dtype).to(torch.float32).reshape(kvol * cin, cout)
+    out = torch.empty((m, cout), dtype=torch.float32, device=feats.device)
+    for s in range(0, m, SUBM_CHUNK):
+        rb = rulebook[s:s + SUBM_CHUNK].long()
+        g = feats_pad[rb].to(torch.float32)  # (chunk, K, Cin)
+        out[s:s + SUBM_CHUNK] = g.reshape(len(rb), kvol * cin) @ w
+    return out
+
+
+def subm_conv(st: SparseTensor, weights: torch.Tensor, rulebook: torch.Tensor,
+              compute_dtype: torch.dtype = torch.bfloat16,
+              windows: dict | None = None) -> torch.Tensor:
+    """weights (K, Cin, Cout); returns (M, Cout) float32, zero on invalid
+    rows. out[i] = sum_k W[k]^T feats[nbr[i,k]] over present neighbours.
+
+    On the card this is kernel K2, which takes bf16 operands only; on the
+    CPU the plain version at `compute_dtype`."""
+    if windows is not None:
+        raise NotImplementedError("window plans (sparse/plan.py) are not ported")
+    if weights.shape[0] % 2 != 1:
+        raise ValueError("subm_conv needs an odd (symmetric) kernel")
+    feats = torch.where(st.valid[:, None], st.feats, 0.0)
+    if feats.is_cuda:
+        if compute_dtype != torch.bfloat16:
+            raise ValueError("the CUDA subm_conv kernel computes in bfloat16 only")
+        out = cuda_subm_conv.subm_conv_cuda(feats.to(torch.bfloat16),
+                                            weights.to(torch.bfloat16), rulebook)
+    else:
+        out = subm_conv_plain(feats, weights, rulebook, compute_dtype)
+    return torch.where(st.valid[:, None], out, 0.0)
+
+
+# --- stride-2 down / up -----------------------------------------------------
+
+
+def _lexsort(keys: list[torch.Tensor]) -> torch.Tensor:
+    """Stable lexsort as numpy/jnp order it: the LAST key is the primary."""
+    order = torch.arange(keys[0].shape[0], device=keys[0].device)
+    for k in keys:
+        order = order[torch.argsort(k[order], stable=True)]
+    return order
+
+
+def downsample_coords(st: SparseTensor, cap_out: int):
+    """Unique coords // 2 (stride-2 output sites) + the per-input output row
+    and kernel index. Returns (coords_out (cap_out, 4), valid_out, num_out,
+    out_row (M,), delta (M,)); rows whose output site lies past cap_out get
+    out_row == cap_out, and num_out counts every unique site."""
+    c = st.coords.to(torch.int32)
+    half = torch.cat([c[:, :1], c[:, 1:4] >> 1, c[:, 4:]], dim=1)
+    delta = c[:, 1] % 2 * 4 + c[:, 2] % 2 * 2 + c[:, 3] % 2  # in {0..7}
+
+    invalid = (~st.valid).to(torch.int32)
+    order = _lexsort([half[:, j] for j in range(half.shape[1] - 1, -1, -1)] + [invalid])
+    s_half = half[order]
+    s_ok = st.valid[order]
+    prev_same = torch.all(s_half[1:] == s_half[:-1], dim=1)
+    firsts = torch.cat([torch.ones(1, dtype=torch.bool, device=c.device), ~prev_same]) & s_ok
+    compact_sorted = torch.cumsum(firsts.to(torch.int32), 0, dtype=torch.int32) - 1
+    num_out = torch.sum(firsts.to(torch.int32), dtype=torch.int32)
+    row_sorted = torch.where(s_ok & (compact_sorted < cap_out), compact_sorted, cap_out)
+    out_row = row_sorted[invert_permutation(order).long()]
+
+    coords_out = segment_sum(torch.where(firsts[:, None], s_half, 0),
+                             torch.where(firsts, row_sorted, -1), cap_out).to(torch.int32)
+    valid_out = torch.arange(cap_out, device=c.device) < num_out
+    return coords_out, valid_out, num_out, out_row.to(torch.int32), delta.to(torch.int32)
+
+
+def strided_conv_down(st: SparseTensor, weights: torch.Tensor, cap_out: int,
+                      compute_dtype: torch.dtype = torch.float32
+                      ) -> tuple[SparseTensor, dict]:
+    """Kernel-2 stride-2 sparse conv; weights (8, Cin, Cout). Also returns
+    the `indice_key` dict the matching inverse conv needs."""
+    coords_out, valid_out, num_out, out_row, delta = downsample_coords(st, cap_out)
+    feats = torch.where(st.valid[:, None], st.feats, 0.0).to(compute_dtype)
+    w = weights.to(compute_dtype)
+    # contrib[i] = feats[i] @ W[delta_i], one masked matmul per kernel index
+    contrib = torch.zeros((st.capacity, weights.shape[2]), dtype=torch.float32,
+                          device=feats.device)
+    for kk in range(8):
+        sel = (delta == kk)[:, None]
+        contrib += (torch.where(sel, feats, 0) @ w[kk]).to(torch.float32)
+    out = segment_sum(contrib, torch.where(st.valid, out_row, -1), cap_out)
+    key = {"out_row": out_row, "delta": delta, "fine_coords": st.coords,
+           "fine_valid": st.valid, "fine_num": st.num}
+    return SparseTensor(coords_out, out, valid_out, num_out), key
+
+
+def inverse_conv_up(st_coarse: SparseTensor, weights: torch.Tensor, indice_key: dict,
+                    compute_dtype: torch.dtype = torch.float32) -> SparseTensor:
+    """Kernel-2 stride-2 transposed conv back to the saved fine sites;
+    weights (8, Cin, Cout). Each fine voxel reads exactly one coarse voxel."""
+    out_row = indice_key["out_row"]
+    delta = indice_key["delta"]
+    fine_valid = indice_key["fine_valid"]
+    cap_c = st_coarse.capacity
+    feats = torch.where(st_coarse.valid[:, None], st_coarse.feats, 0.0)
+    feats_pad = torch.cat([feats, feats.new_zeros((1, feats.shape[1]))])
+    g = feats_pad[torch.clamp(out_row, max=cap_c).long()].to(compute_dtype)
+    w = weights.to(compute_dtype)
+    out = torch.zeros((g.shape[0], weights.shape[2]), dtype=torch.float32, device=g.device)
+    for kk in range(8):
+        sel = (delta == kk)[:, None]
+        out += (torch.where(sel, g, 0) @ w[kk]).to(torch.float32)
+    out = torch.where((fine_valid & (out_row < cap_c))[:, None], out, 0.0)
+    return SparseTensor(indice_key["fine_coords"], out, fine_valid, indice_key["fine_num"])

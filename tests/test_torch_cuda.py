@@ -9,6 +9,8 @@ import torch
 
 from seggroup_tpu_torch.ops import cuda_fps
 from seggroup_tpu_torch.ops.fps import masked_fps, masked_fps_plain
+from seggroup_tpu_torch.sparse import cuda_subm_conv
+from seggroup_tpu_torch.sparse.conv import subm_conv_plain
 
 pytestmark = pytest.mark.cuda
 
@@ -51,3 +53,44 @@ def test_fps_kernel_refuses_oversized_rows():
     pts = torch.zeros(1, 16385, 3, device=dev)
     with pytest.raises(ValueError):
         cuda_fps.masked_fps_cuda(pts, torch.ones(1, 16385, dtype=torch.bool, device=dev), 4)
+
+
+def _subm_case(m, cin, cout, seed=0, absent=0.85):
+    """Random rulebook over m rows: each offset present with probability
+    1 - absent, the first 100 rows with no neighbour at all."""
+    rng = np.random.default_rng(seed)
+    rb = rng.integers(0, m, size=(m, 27)).astype(np.int32)
+    rb[rng.random((m, 27)) < absent] = m
+    rb[:100] = m
+    feats = rng.normal(size=(m, cin)).astype(np.float32)
+    w = (rng.normal(size=(27, cin, cout)) / np.sqrt(27 * cin)).astype(np.float32)
+    return (torch.from_numpy(feats).to(torch.bfloat16), torch.from_numpy(w).to(torch.bfloat16),
+            torch.from_numpy(rb))
+
+
+@pytest.mark.parametrize("m,cin,cout", [
+    (20000, 3, 32),      # the stem, Cin padded to 8: K2c shift 2
+    (20000, 32, 64),     # K2c shift 2
+    (20003, 64, 64),     # K2c shift 1, M not a multiple of the row tile
+    (20000, 96, 96),     # K2a/b, chunked Cin, Cout tile half used
+    (8192, 384, 256),    # K2a/b, the widest
+    (5000, 40, 20),      # Cin and Cout not multiples of 8 (padded)
+])
+def test_subm_conv_kernel_matches_plain(m, cin, cout):
+    dev = _card()
+    f, w, rb = (x.to(dev) for x in _subm_case(m, cin, cout))
+    before = cuda_subm_conv.launches
+    got = cuda_subm_conv.subm_conv_cuda(f, w, rb)
+    assert cuda_subm_conv.launches == before + 1
+    want = subm_conv_plain(f, w, rb, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (m, cout)
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+    assert (got[:100] == 0).all()
+
+
+def test_subm_conv_kernel_refuses_float32():
+    dev = _card()
+    f, w, rb = (x.to(dev) for x in _subm_case(256, 8, 8))
+    with pytest.raises(ValueError):
+        cuda_subm_conv.subm_conv_cuda(f.float(), w, rb)

@@ -20,6 +20,8 @@ def test_import_leaves_jax_out():
         "import sys\n"
         "import seggroup_tpu_torch.infer, seggroup_tpu_torch.models.convert\n"
         "import seggroup_tpu_torch.ops.cuda_fps, chip_smoke\n"
+        "import seggroup_tpu_torch.cli.stage2_test_semantic\n"
+        "import seggroup_tpu_torch.sparse.cuda_subm_conv\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert not bad, bad\n"
     )
@@ -66,3 +68,17 @@ def test_entry_points_default_to_the_card():
     with pytest.raises(RuntimeError, match="CUDA"):
         make_synthetic_scene(num_points=64, num_slots=8, num_edges=16,
                              num_instances=2, segs_per_instance=2).to()
+
+
+def test_stage2_entry_points_default_to_the_card():
+    """The stage-2 CLI's main() without --device, and MinkUNet without
+    device=, run on CUDA and raise where there is none."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    from seggroup_tpu_torch.cli.stage2_test_semantic import main
+    from seggroup_tpu_torch.models.minkunet import make_minkunet
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["--synthetic", "1"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_minkunet("Res16UNet14A")
