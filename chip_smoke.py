@@ -21,7 +21,18 @@ Phases, in order; any failure exits non-zero:
      read around it;
   6. MinkUNet on a small input on the card (K2) and on the CPU (plain):
      rulebooks and downsample maps equal, logits within tolerance;
-  7. a `kernels` JSON line, the card line, then the device line as the last.
+  7. the stage-2 training path at full width: Res16UNet34C train steps at
+     2^17 voxels, batch size 8, SGD lr 0.1 PolyLR, augmented batches of 8
+     bench-size scenes built by the host prefetcher, through
+     cli.stage2_train_minkunet.train_step; K2's and K3's launch counts are
+     read around the timed steps (47 K3 and 93 K2 launches per step);
+  8. Res16UNet14A on the card (K2, K3) and on the CPU (plain): one train
+     step at 2^14 and at 2,048 rows (loss, gradients and running
+     statistics within tolerance) and one backward through the
+     running-statistics forward at 2^14 rows (each gradient tensor held on
+     its own); then 30 steps on one fixed batch on the card, whose loss
+     must fall;
+  9. a `kernels` JSON line, the card line, then the device line as the last.
 
 Needs one card. Imports nothing of JAX or of the JAX package."""
 
@@ -54,8 +65,30 @@ SUBM_PER_FORWARD = 47  # Res16UNet34C: stem 1, encoder 30, decoder 16
 # every (Cin, Cout) of Res16UNet34C's submanifold convs
 K2_PAIRS = [(3, 32), (32, 32), (32, 64), (64, 64), (64, 128), (128, 128), (128, 256),
             (256, 256), (384, 256), (192, 128), (128, 96), (96, 96)]
+# the (Cout, Cin) K2 runs at for the data gradient (none for the stem,
+# whose input needs no gradient)
+K2_DGRAD_PAIRS = list(dict.fromkeys((co, ci) for ci, co in K2_PAIRS if ci != 3))
 K2_TIMED = (384, 256)  # the widest pair: the one the kernels line reports
 K2_RTOL = 1e-4  # of max|plain|: only the order of the float32 sums differs
+K3_RTOL = 1e-4  # of max|plain|: the same, over sums as long as M
+# stage-2 training: the training driver's defaults (cli/stage2_train_minkunet.py)
+TRAIN_BATCH, TRAIN_POOL, TRAIN_WARMUP, TRAIN_STEPS, TRAIN_FENCED = 8, 8, 2, 10, 3
+K2_PER_STEP = 2 * SUBM_PER_FORWARD - 1  # forward, and the data gradient but the stem's
+# card vs CPU train step: the bounds tests/test_torch_minkunet_train.py holds
+# the port's bf16 step to against JAX (bf16 gradients through batch
+# statistics are chaotic: the reference's own bf16 and float32 gradients
+# differ by 0.23 in relative L2 norm)
+STEP_LOSS_ATOL, STAT_ATOL, STAT_RTOL = 1e-3, 1e-4, 1e-3
+GRAD_REL_L2, HEAD_GRAD_RTOL = 0.3, 2e-2
+# each gradient tensor of a backward through running statistics at 2^14
+# rows: its max |card - CPU| / max|CPU| at most GRAD_OVER_BF16 times (what
+# bf16 itself moves that tensor by on the CPU, against float32 convs, plus
+# GRAD_FLOOR). The card and the CPU round the same operands to bf16 and
+# differ only in the order of the float32 sums; measured at most 0.968 of
+# that reading on an H100 (a fault confined to the (32, 32) convs' data
+# gradient scores 6 or more, one in the stem's weight gradient about 90)
+GRAD_OVER_BF16, GRAD_FLOOR = 1.5, 1e-2
+OVERFIT_STEPS = 30
 # MinkUNet card vs CPU: the tolerance tests/test_torch_minkunet.py holds the
 # port to against JAX (bf16 products, float32 sums in another order)
 LOGIT_ATOL, LOGIT_RTOL, ARGMAX_AGREE = 2e-4, 1e-3, 0.99
@@ -260,10 +293,38 @@ def k2_sites(torch, dev, m: int):
     return build_subm_rulebook(st, 3)
 
 
-def check_subm_conv(torch, dev, card):
+def bench_rulebooks(torch, dev):
+    """The level-0 and level-3 rulebooks that Res16UNet34C builds for bench
+    scene 0 voxelised at 2 cm into 2^17 rows (the capacity binds at level
+    0; level 3 holds 16,384 rows, padding rows among them), built on the
+    card."""
+    from seggroup_tpu_torch.cli.stage2_common import scene_to_training_tuple
+    from seggroup_tpu_torch.cli.stage2_test_semantic import level_caps
+    from seggroup_tpu_torch.cli.stage2_train_minkunet import batch_to_device
+    from seggroup_tpu_torch.data.synthetic import BENCH_SCENE, make_synthetic_scene
+    from seggroup_tpu_torch.data.voxel_dataset import make_voxel_batch
+    from seggroup_tpu_torch.sparse.conv import build_subm_rulebook, downsample_coords
+    from seggroup_tpu_torch.sparse.tensor import SparseTensor
+
+    scene = scene_to_training_tuple(make_synthetic_scene(seed=0, **BENCH_SCENE), {}, None,
+                                    "", False)
+    st, _ = batch_to_device(make_voxel_batch([scene], CAPACITY, VOXEL), dev)
+    rb0 = build_subm_rulebook(st, 3)
+    caps = level_caps(CAPACITY)
+    for lvl in range(3):
+        coords, valid, num = downsample_coords(st, caps[lvl + 1])[:3]
+        st = SparseTensor(coords, torch.zeros((caps[lvl + 1], 1), device=dev), valid, num)
+    rb3 = build_subm_rulebook(st, 3)
+    return [(rb0, " bench level 0"),
+            (rb3, f" bench level 3 ({int(st.valid.sum())} valid rows)")]
+
+
+def check_subm_conv(torch, dev, card, bench):
     """K2 against its plain version in bf16 at every (Cin, Cout) of
-    Res16UNet34C, on 131,072 dense sites, plus rows with no neighbour and a
-    ragged M; per pair the kernel's, the plain version's and the
+    Res16UNet34C, on 131,072 dense sites, plus rows with no neighbour, a
+    ragged M, the data gradient's transposed pairs, and a bench scene's
+    level-0 and level-3 rulebooks; each case run twice and required
+    bit-equal; per pair the kernel's, the plain version's and the
     pre-gathered matmul's times beside the bound."""
     from seggroup_tpu_torch.sparse import cuda_subm_conv
     from seggroup_tpu_torch.sparse.conv import subm_conv_plain
@@ -279,6 +340,10 @@ def check_subm_conv(torch, dev, card):
     cases = [(c, rb_full, "") for c in K2_PAIRS]
     cases += [((64, 64), rb_lonely, " rows without neighbours"),
               ((96, 96), rb_ragged, f" M={m - 13}")]
+    cases += [(c, rb_full, " (data gradient)") for c in K2_DGRAD_PAIRS if c not in K2_PAIRS]
+    (rb_l0, l0), (rb_l3, l3) = bench
+    cases += [((3, 32), rb_l0, l0), ((32, 32), rb_l0, l0),
+              ((384, 256), rb_l3, l3), ((256, 384), rb_l3, l3 + " (data gradient)")]
     max_err, timed = 0.0, None
     for (cin, cout), rb, note in cases:
         rows = rb.shape[0]
@@ -286,18 +351,22 @@ def check_subm_conv(torch, dev, card):
         w = (torch.randn(27, cin, cout, generator=g, device=dev)
              / (27 * cin) ** 0.5).to(torch.bfloat16)
         got = cuda_subm_conv.subm_conv_cuda(f, w, rb)
+        again = cuda_subm_conv.subm_conv_cuda(f, w, rb)
         want = subm_conv_plain(f, w, rb, torch.bfloat16)
         torch.cuda.synchronize()
         err, scale = float((got - want).abs().max()), float(want.abs().max())
         line = (f"K2 {cuda_subm_conv.regime(cin)} ({cin},{cout}){note}: "
-                f"max |kernel - plain| = {err:.3e} = {err / scale:.2e} of max|plain|")
+                f"max |kernel - plain| = {err:.3e} = {err / scale:.2e} of max|plain| "
+                f"({int((rb < rows).sum()) / rows:.2f} present neighbours per row)")
         if err > K2_RTOL * scale or not torch.isfinite(got).all():
             raise AssertionError(line)
         if not (got[(rb == rows).all(1)] == 0).all():
             raise AssertionError(f"{line}: a row with no neighbour is not zero")
+        if not torch.equal(got, again):
+            raise AssertionError(f"{line}: two runs on the same inputs differ")
         max_err = max(max_err, err)
         if note:
-            print(line, flush=True)
+            print(line + "; bit-equal across two runs", flush=True)
             continue
         ms = cuda_ms(lambda: cuda_subm_conv.subm_conv_cuda(f, w, rb), reps=50, warmup=3)
         plain_ms = cuda_ms(lambda: subm_conv_plain(f, w, rb, torch.bfloat16), reps=3, warmup=1)
@@ -312,9 +381,9 @@ def check_subm_conv(torch, dev, card):
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
         bound = max(t_bytes, t_ops)
         by = "bytes" if t_bytes >= t_ops else "operations"
-        print(f"{line}; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, library {library_ms:.4f} ms, "
-              f"bound {bound:.4f} ms ({by}); {flops / ms / 1e9:.1f} TFLOP/s on {card}",
-              flush=True)
+        print(f"{line}; bit-equal across two runs; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+              f"library {library_ms:.4f} ms, bound {bound:.4f} ms ({by}); "
+              f"{flops / ms / 1e9:.1f} TFLOP/s on {card}", flush=True)
         if (cin, cout) == K2_TIMED:
             timed = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound,
                          bound_by=by)
@@ -332,7 +401,7 @@ def run_stage2_path(torch, dev, card):
     from seggroup_tpu_torch.data.synthetic import BENCH_SCENE, make_synthetic_scene
     from seggroup_tpu_torch.data.voxel_dataset import make_voxel_batch
     from seggroup_tpu_torch.models.minkunet import make_minkunet
-    from seggroup_tpu_torch.sparse import cuda_subm_conv
+    from seggroup_tpu_torch.sparse import cuda_subm_conv, cuda_subm_dw
 
     scenes = []
     for i in range(N_SCENES):
@@ -351,6 +420,7 @@ def run_stage2_path(torch, dev, card):
     log: list = []
     torch.cuda.reset_peak_memory_stats(dev)
     cuda_subm_conv.launches = 0
+    cuda_subm_dw.launches = 0
     t0 = time.perf_counter()
     miou, _, ap_class = test_semantic_minkunet(model, scenes, CAPACITY, VOXEL, 20,
                                                phase_seconds=phases, scene_log=log)
@@ -361,6 +431,8 @@ def run_stage2_path(torch, dev, card):
 
     if launches < SUBM_PER_FORWARD * N_SCENES:
         raise AssertionError(f"K2 launched {launches} times in {N_SCENES} forwards")
+    if cuda_subm_dw.launches:
+        raise AssertionError("inference launched the weight-gradient kernel")
     for (name, c, col, lab), rec in zip(scenes, log):
         over = int((make_voxel_batch([(c, col, lab)], CAPACITY, VOXEL).point2voxel[0] < 0).sum())
         if rec["dropped"] != over:
@@ -396,19 +468,7 @@ def minkunet_card_vs_cpu(torch, dev):
 
     m, n = 2048, 1500
     caps = [m, m // 2, m // 4, m // 8, m // 8]
-    rng = np.random.default_rng(5)
-    seen, rows = set(), []
-    while len(rows) < n:
-        c = (int(rng.integers(0, 2)), *(int(v) for v in rng.integers(0, 24, 3)))
-        if c not in seen:
-            seen.add(c)
-            rows.append(c)
-    coords = np.zeros((m, 4), np.int32)
-    coords[:n] = rows
-    feats = np.zeros((m, 3), np.float32)
-    feats[:n] = rng.normal(size=(n, 3))
-    st_cpu = SparseTensor(torch.from_numpy(coords), torch.from_numpy(feats),
-                          torch.arange(m) < n, torch.tensor(n, dtype=torch.int32))
+    st_cpu, _ = _small_batch(torch, m, n, 5)
     st_card = st_cpu.to(dev)
 
     a, b = st_card, st_cpu
@@ -426,8 +486,9 @@ def minkunet_card_vs_cpu(torch, dev):
                             device=dev)
     on_cpu = make_minkunet("Res16UNet14A", out_channels=20, level_caps=caps, seed=1,
                            device="cpu")
-    x = on_card(st_card).cpu()
-    y = on_cpu(st_cpu)
+    with torch.no_grad():
+        x = on_card(st_card).cpu()
+        y = on_cpu(st_cpu)
     diff = float((x - y).abs().max())
     agree = float((x[:n].argmax(1) == y[:n].argmax(1)).float().mean())
     if not torch.allclose(x, y, rtol=LOGIT_RTOL, atol=LOGIT_ATOL) or agree < ARGMAX_AGREE:
@@ -439,18 +500,421 @@ def minkunet_card_vs_cpu(torch, dev):
           f"{float(y.abs().max()):.3f}), argmax agrees on {agree:.4f} of voxels", flush=True)
 
 
+def check_subm_dw(torch, dev, card, bench):
+    """K3 against its plain version in bf16 at every (Cin, Cout) of
+    Res16UNet34C, on the 131,072 dense sites, plus rows with no neighbour,
+    a ragged M, and a bench scene's level-0 rulebook (about 3.8 present
+    neighbours per row, so whole 64-row chunks lack an offset) and level-3
+    rulebook (16,384 rows with padding rows); each case run twice and
+    required bit-equal; per pair the kernel's, the plain version's and the
+    pre-gathered matmul's times beside the bound."""
+    from seggroup_tpu_torch.sparse import cuda_subm_dw
+    from seggroup_tpu_torch.sparse.conv import subm_dw_plain
+
+    m = CAPACITY
+    rb_full = k2_sites(torch, dev, m)
+    rb_lonely = rb_full.clone()
+    rb_lonely[::7] = m
+    rb_ragged = k2_sites(torch, dev, m - 13)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    g = torch.Generator(device=dev).manual_seed(1)
+    cases = [(c, rb_full, "") for c in K2_PAIRS]
+    cases += [((64, 64), rb_lonely, " rows without neighbours"),
+              ((96, 96), rb_ragged, f" M={m - 13}")]
+    (rb_l0, l0), (rb_l3, l3) = bench
+    cases += [((3, 32), rb_l0, l0), ((32, 32), rb_l0, l0),
+              ((384, 256), rb_l3, l3), ((256, 256), rb_l3, l3)]
+    max_err, timed = 0.0, None
+    for (cin, cout), rb, note in cases:
+        rows = rb.shape[0]
+        pairs_present = int((rb < rows).sum())
+        f = torch.randn(rows, cin, generator=g, device=dev).to(torch.bfloat16)
+        d = torch.randn(rows, cout, generator=g, device=dev).to(torch.bfloat16)
+        got = cuda_subm_dw.subm_dw_cuda(f, d, rb)
+        again = cuda_subm_dw.subm_dw_cuda(f, d, rb)
+        want = subm_dw_plain(f, d, rb, torch.bfloat16)
+        torch.cuda.synchronize()
+        err, scale = float((got - want).abs().max()), float(want.abs().max())
+        slabs, slab_rows = cuda_subm_dw.slabs_for(rows, 27, -(-cin // 8) * 8, -(-cout // 8) * 8,
+                                                  sms)
+        line = (f"K3 {cuda_subm_dw.regime(cin)} ({cin},{cout}){note}: max |kernel - plain| = "
+                f"{err:.3e} = {err / scale:.2e} of max|plain| (sums over {rows} rows, "
+                f"{pairs_present / rows:.2f} present neighbours per row; {slabs} slabs of "
+                f"{slab_rows} rows)")
+        if err > K3_RTOL * scale or not torch.isfinite(got).all():
+            raise AssertionError(line)
+        if not torch.equal(got, again):
+            raise AssertionError(f"{line}: two runs on the same inputs differ")
+        max_err = max(max_err, err)
+        if note:
+            print(line + "; bit-equal across two runs", flush=True)
+            continue
+        ms = cuda_ms(lambda: cuda_subm_dw.subm_dw_cuda(f, d, rb), reps=30, warmup=3)
+        plain_ms = cuda_ms(lambda: subm_dw_plain(f, d, rb, torch.bfloat16), reps=3, warmup=1)
+        a = torch.cat([f, f.new_zeros(1, cin)])[rb.long()].reshape(rows, 27 * cin)
+        library_ms = cuda_ms(lambda: torch.matmul(a.T, d), reps=20, warmup=2)
+        del a
+        # the bytes K3 must move (bf16 feats and dout, int32 rulebook, f32
+        # dW), and 2*Cin*Cout operations per present pair
+        nbytes = rows * cin * 2 + rows * cout * 2 + rows * 27 * 4 + 27 * cin * cout * 4
+        flops = 2 * pairs_present * cin * cout
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
+        bound = max(t_bytes, t_ops)
+        by = "bytes" if t_bytes >= t_ops else "operations"
+        print(f"{line}; bit-equal across two runs; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+              f"library {library_ms:.4f} ms, bound {bound:.4f} ms ({by}); "
+              f"{flops / ms / 1e9:.1f} TFLOP/s on {card}", flush=True)
+        if (cin, cout) == K2_TIMED:
+            timed = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound,
+                         bound_by=by)
+    return {"name": "subm_dw", "route": "cuda",
+            "source": "seggroup_tpu_torch/csrc/subm_dw.cu",
+            "replaces": "seggroup_tpu/sparse/pallas_conv.py:644",
+            "max_abs_err": max_err, **timed}
+
+
+def _train_setup(torch, dev, variant, caps, seed):
+    from seggroup_tpu_torch.models.minkunet import make_minkunet
+    from seggroup_tpu_torch.solvers import make_optimizer, make_schedule
+
+    model = make_minkunet(variant, out_channels=20, level_caps=caps, seed=seed, device=dev)
+    optimizer, scheduler = make_optimizer("SGD", model.parameters(),
+                                          make_schedule("PolyLR", 0.1, max_iter=60000))
+    return model, optimizer, scheduler
+
+
+def run_train_path(torch, dev, card):
+    """Res16UNet34C training at full width: augmented batches built by the
+    host prefetcher (2 workers, 3 ahead) over 8 bench-size scenes, moved to
+    the card in the main thread, through train_step. Returns the K2 and K3
+    launch counts of the timed steps."""
+    from seggroup_tpu_torch.cli.stage2_common import scene_to_training_tuple
+    from seggroup_tpu_torch.cli.stage2_test_semantic import level_caps
+    from seggroup_tpu_torch.cli.stage2_train_minkunet import (batch_to_device,
+                                                              make_train_batch, train_step)
+    from seggroup_tpu_torch.data.synthetic import BENCH_SCENE, make_synthetic_scene
+    from seggroup_tpu_torch.sparse import cuda_subm_conv, cuda_subm_dw
+    from seggroup_tpu_torch.utils.prefetch import HostPrefetcher
+
+    scenes = [scene_to_training_tuple(make_synthetic_scene(seed=i, **BENCH_SCENE), {}, None,
+                                      "", False) for i in range(TRAIN_POOL)]
+    model, optimizer, scheduler = _train_setup(torch, dev, "Res16UNet34C",
+                                               level_caps(CAPACITY), 0)
+    stats0 = {k: v.clone() for k, v in model.named_buffers()}
+    prefetch = HostPrefetcher(
+        lambda s: make_train_batch(scenes.__getitem__, range(TRAIN_POOL), s + 1, 1,
+                                   TRAIN_BATCH, CAPACITY, VOXEL, True),
+        depth=3, workers=2)
+    losses, voxels, scenes_used = [], [], []
+    try:
+        t0 = time.perf_counter()
+        for _ in range(TRAIN_WARMUP):
+            st, labels = batch_to_device(next(prefetch), dev)
+            losses.append(train_step(model, optimizer, scheduler, st, labels)[0])
+        torch.cuda.synchronize()
+        print(f"stage-2 training warm-up, {TRAIN_WARMUP} steps: "
+              f"{time.perf_counter() - t0:.3f} s", flush=True)
+
+        torch.cuda.reset_peak_memory_stats(dev)
+        cuda_subm_conv.launches = 0
+        cuda_subm_dw.launches = 0
+        t0 = time.perf_counter()
+        for _ in range(TRAIN_STEPS):
+            vb = next(prefetch)
+            voxels.append(int(vb.num))
+            scenes_used.append(int(vb.coords[: int(vb.num), 0].max()) + 1)
+            st, labels = batch_to_device(vb, dev)
+            losses.append(train_step(model, optimizer, scheduler, st, labels)[0])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"subm_conv": cuda_subm_conv.launches, "subm_dw": cuda_subm_dw.launches}
+        peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+
+        # the split, each phase fenced by a synchronisation on each side
+        phases: dict[str, float] = {}
+        t0 = time.perf_counter()
+        for _ in range(TRAIN_FENCED):
+            torch.cuda.synchronize()
+            tw = time.perf_counter()
+            st, labels = batch_to_device(next(prefetch), dev)
+            torch.cuda.synchronize()
+            phases["batch wait"] = phases.get("batch wait", 0.0) + time.perf_counter() - tw
+            losses.append(train_step(model, optimizer, scheduler, st, labels,
+                                     phase_seconds=phases)[0])
+        fenced = (time.perf_counter() - t0) / TRAIN_FENCED
+    finally:
+        prefetch.close()
+
+    if launches["subm_dw"] != SUBM_PER_FORWARD * TRAIN_STEPS:
+        raise AssertionError(f"K3 launched {launches['subm_dw']} times in {TRAIN_STEPS} steps")
+    if launches["subm_conv"] != K2_PER_STEP * TRAIN_STEPS:
+        raise AssertionError(f"K2 launched {launches['subm_conv']} times in {TRAIN_STEPS} steps")
+    loss_values = [float(x) for x in losses]
+    if not all(np.isfinite(loss_values)):
+        raise AssertionError(f"non-finite training loss: {loss_values}")
+    moved = [k for k, v in model.named_buffers() if not torch.equal(v, stats0[k])]
+    if len(moved) != len(stats0):
+        raise AssertionError(f"BatchNorm running statistics did not move: "
+                             f"{sorted(set(stats0) - set(moved))[:5]}")
+    split = ", ".join(f"{k} {v / TRAIN_FENCED:.4f} s" for k, v in phases.items())
+    print(f"stage-2 Res16UNet34C training, capacity {CAPACITY}, batch size {TRAIN_BATCH} "
+          f"from {TRAIN_POOL} bench-size scenes ({BENCH_SCENE['num_points']} points), SGD lr "
+          f"0.1 PolyLR, augmented: {wall / TRAIN_STEPS:.4f} s/step over {TRAIN_STEPS} steps, "
+          f"{sum(voxels) / wall:.1f} voxels/s ({np.mean(voxels):.1f} voxels per step from "
+          f"{np.mean(scenes_used):.2f} scenes: the capacity binds); fenced split per step "
+          f"({fenced:.4f} s/step): {split}; peak {peak_gib:.2f} GiB; per step "
+          f"{launches['subm_conv'] / TRAIN_STEPS:.1f} K2 and "
+          f"{launches['subm_dw'] / TRAIN_STEPS:.1f} K3 launches; losses "
+          f"{[round(x, 4) for x in loss_values]}; on {card}", flush=True)
+    return launches
+
+
+def _small_batch(torch, m, n, seed):
+    """A SparseTensor of n unique sites over two batch ids in a 24^3 box,
+    padded to m rows, and random labels (some unlabelled), on the CPU."""
+    from seggroup_tpu_torch.sparse.tensor import SparseTensor
+
+    rng = np.random.default_rng(seed)
+    seen, rows = set(), []
+    while len(rows) < n:
+        c = (int(rng.integers(0, 2)), *(int(v) for v in rng.integers(0, 24, 3)))
+        if c not in seen:
+            seen.add(c)
+            rows.append(c)
+    coords = np.zeros((m, 4), np.int32)
+    coords[:n] = rows
+    feats = np.zeros((m, 3), np.float32)
+    feats[:n] = rng.normal(size=(n, 3))
+    labels = rng.integers(0, 20, size=m).astype(np.int32)
+    labels[rng.random(m) < 0.1] = 255
+    labels[n:] = 255
+    st = SparseTensor(torch.from_numpy(coords), torch.from_numpy(feats),
+                      torch.arange(m) < n, torch.tensor(n, dtype=torch.int32))
+    return st, torch.from_numpy(labels)
+
+
+class CheckedDispatch:
+    """While active, every K2 and K3 call of the sparse conv (the forward,
+    the data gradient and the weight gradient, through the device dispatch
+    of sparse/conv.py) is held against its plain version on the same card
+    inputs: max |kernel - plain| within K2_RTOL or K3_RTOL of max|plain|.
+    Records the worst ratio per (kernel, Cin, Cout, rows)."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.worst: dict = {}
+
+    def _checked(self, name, fn, plain, rtol):
+        def call(a, b, rulebook, compute_dtype):
+            got = fn(a, b, rulebook, compute_dtype)
+            if a.is_cuda:
+                want = plain(a, b, rulebook, compute_dtype)
+                ratio = float((got - want).abs().max() / want.abs().max().clamp(min=1e-30))
+                key = (name, a.shape[1], got.shape[-1], a.shape[0])
+                self.worst[key] = max(self.worst.get(key, 0.0), ratio)
+                if ratio > rtol or not self.torch.isfinite(got).all():
+                    raise AssertionError(f"{name} {key[1:]} in the network: max |kernel - "
+                                         f"plain| = {ratio:.2e} of max|plain|")
+            return got
+        return call
+
+    def __enter__(self):
+        from seggroup_tpu_torch.sparse import conv
+
+        self.saved = conv._subm_apply, conv._subm_dw
+        conv._subm_apply = self._checked("K2", conv._subm_apply, conv.subm_conv_plain, K2_RTOL)
+        conv._subm_dw = self._checked("K3", conv._subm_dw, conv.subm_dw_plain, K3_RTOL)
+        return self
+
+    def __exit__(self, *exc):
+        from seggroup_tpu_torch.sparse import conv
+
+        conv._subm_apply, conv._subm_dw = self.saved
+
+    def summary(self) -> str:
+        by = {}
+        for key, ratio in self.worst.items():
+            by.setdefault(key[0], []).append(ratio)
+        return "; ".join(f"{name} {len(r)} shapes, worst {max(r):.2e} of max|plain|"
+                         for name, r in sorted(by.items()))
+
+
+def _grads_on(torch, devices, st, labels, caps, train, f32=False):
+    """Res16UNet14A from the same weights on each device (K2 and K3 on the
+    card, the plain versions on the CPU): with `train`, one train step;
+    else one backward of the loss through the running-statistics forward,
+    its submanifold convs at float32 with `f32` (the CPU only). Returns
+    (loss, gradients, buffers) for each device."""
+    import functools
+
+    from seggroup_tpu_torch.cli.stage2_train_minkunet import masked_nll, train_step
+    from seggroup_tpu_torch.models import minkunet
+
+    runs = []
+    for d in devices:
+        model, optimizer, scheduler = _train_setup(torch, d, "Res16UNet14A", caps, 1)
+        st_d, labels_d = st.to(d), labels.to(d)
+        if train:
+            loss, _ = train_step(model, optimizer, scheduler, st_d, labels_d)
+        else:
+            subm_conv = minkunet.subm_conv
+            if f32:
+                minkunet.subm_conv = functools.partial(subm_conv, compute_dtype=torch.float32)
+            try:
+                loss = masked_nll(model(st_d), labels_d, st_d.valid)
+                loss.backward()
+            finally:
+                minkunet.subm_conv = subm_conv
+        grads = {k: p.grad.cpu() for k, p in model.named_parameters()}
+        runs.append((float(loss.detach()), grads,
+                     {k: b.cpu() for k, b in model.named_buffers()}))
+    return runs
+
+
+def _per_tensor(ga, gb, norm):
+    """{name: |ga - gb| / |gb|} in the given norm ("max" or "l2")."""
+    if norm == "max":
+        return {k: float((ga[k] - g).abs().max() / g.abs().max()) for k, g in gb.items()}
+    return {k: float((ga[k] - g).norm() / g.norm()) for k, g in gb.items()}
+
+
+def _spread(errs):
+    worst = max(errs, key=errs.get)
+    return (f"median {float(np.median(list(errs.values()))):.2e}, worst {errs[worst]:.2e} "
+            f"({worst})")
+
+
+def _step_line(torch, runs):
+    """(out of bounds, text): the loss, the running statistics and the
+    gradients' relative L2 distance, card against CPU."""
+    (la, ga, sa), (lb, gb, sb) = runs
+    stat_err = max(float(((sa[k] - v).abs() - STAT_RTOL * v.abs()).max()) for k, v in sb.items())
+    diff = sum(float(((ga[k] - g) ** 2).sum()) for k, g in gb.items())
+    rel_l2 = (diff / sum(float((g ** 2).sum()) for g in gb.values())) ** 0.5
+    bad = (abs(la - lb) > STEP_LOSS_ATOL or stat_err > STAT_ATOL or rel_l2 > GRAD_REL_L2
+           or not all(torch.isfinite(g).all() for g in ga.values()))
+    return bad, (f"loss {la:.6f} vs {lb:.6f}, running statistics within "
+                 f"{max(stat_err, 0.0):.2e} beyond rtol {STAT_RTOL}, gradients "
+                 f"{rel_l2:.4f} apart in relative L2 norm")
+
+
+def train_card_vs_cpu(torch, dev):
+    """Res16UNet14A on the card (K2, K3) and on the CPU (plain versions)
+    from the same weights, at two sizes. A train step's loss and running
+    statistics are held to the bounds the CPU tests hold the port's bf16
+    step to against JAX, its gradients to GRAD_REL_L2 as a whole: bf16
+    gradients through batch statistics are chaotic at both sizes (at 2^14
+    rows the CPU's own step, run again on one thread, shows the spread that
+    summation order alone makes).
+
+    At M=2^14 (a 30,000-point scene voxelised at 2 cm: the capacity binds
+    at level 0, 225 voxels at the coarsest level) every K2 and K3 call of
+    the card's train step, and of a backward through the running-statistics
+    forward, is held against its plain version on the same inputs
+    (CheckedDispatch): the forward, every data gradient and every weight
+    gradient (the stem's with Cin padded from 3 to 8) at the network's own
+    shapes and full depth. In that backward BatchNorm is affine, and each
+    parameter's gradient is held on its own: the card may differ from the
+    CPU by GRAD_OVER_BF16 times what bf16 moves that tensor on the CPU.
+    At M=2,048 (1,500 random sites in a 24^3 box, about 12 voxels at the
+    coarsest level) the train step's classifier head is held to
+    HEAD_GRAD_RTOL."""
+    from seggroup_tpu_torch.cli.stage2_common import scene_to_training_tuple
+    from seggroup_tpu_torch.cli.stage2_train_minkunet import batch_to_device
+    from seggroup_tpu_torch.data.synthetic import make_synthetic_scene
+    from seggroup_tpu_torch.data.voxel_dataset import make_voxel_batch
+
+    m = 2 ** 14
+    caps = [m, m // 2, m // 4, m // 8, m // 8]
+    scene = scene_to_training_tuple(make_synthetic_scene(seed=5, num_points=30000), {}, None,
+                                    "", False)
+    st, labels = batch_to_device(make_voxel_batch([scene], m, VOXEL), "cpu")
+    cpu = torch.device("cpu")
+    with CheckedDispatch(torch) as checked:
+        runs = _grads_on(torch, (dev, cpu), st, labels, caps, True)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # the same CPU step, its sums in another order
+    try:
+        one_thread = _grads_on(torch, (cpu,), st, labels, caps, True)[0]
+    finally:
+        torch.set_num_threads(threads)
+    bad, text = _step_line(torch, runs)
+    line = (f"card vs CPU, Res16UNet14A train step at M={m} ({int(st.num)} voxels): {text}; "
+            f"per tensor in relative L2 norm, card vs CPU: "
+            f"{_spread(_per_tensor(runs[0][1], runs[1][1], 'l2'))}; CPU on 1 thread vs "
+            f"{threads}: {_spread(_per_tensor(one_thread[1], runs[1][1], 'l2'))}; every "
+            f"kernel call of the step against its plain version: {checked.summary()}")
+    if bad:
+        raise AssertionError(line)
+    print(line, flush=True)
+
+    with CheckedDispatch(torch) as checked:
+        (la, ga, _), (lb, gb, _) = _grads_on(torch, (dev, cpu), st, labels, caps, False)
+    _, g32, _ = _grads_on(torch, (cpu,), st, labels, caps, False, f32=True)[0]
+    errs = _per_tensor(ga, gb, "max")
+    spread = _per_tensor(g32, gb, "max")
+    over = {k: errs[k] / (spread[k] + GRAD_FLOOR) for k in errs}
+    worst = max(over, key=over.get)
+    narrow = ", ".join(f"{k} {errs[k]:.2e} (bf16 {spread[k]:.2e})" for k in (
+        "conv0.kernel", "block1_0.conv1.kernel", "block8_0.conv2.kernel"))
+    line = (f"card vs CPU, Res16UNet14A backward with running statistics at M={m}: loss "
+            f"{la:.6f} vs {lb:.6f}; each gradient's max |card - CPU| / max |CPU|: "
+            f"{_spread(errs)} over {len(errs)} tensors; what bf16 does on the CPU "
+            f"(float32 convs vs bf16): {_spread(spread)}; largest card error over "
+            f"(bf16's + {GRAD_FLOOR}): {over[worst]:.3f} ({worst}: {errs[worst]:.2e} vs "
+            f"{spread[worst]:.2e}); {narrow}; every kernel call against its plain version: "
+            f"{checked.summary()}")
+    if (abs(la - lb) > STEP_LOSS_ATOL or not all(torch.isfinite(g).all() for g in ga.values())
+            or over[worst] > GRAD_OVER_BF16):
+        raise AssertionError(line)
+    print(line, flush=True)
+
+    m, n = 2048, 1500
+    st, labels = _small_batch(torch, m, n, 5)
+    runs = _grads_on(torch, (dev, cpu), st, labels, [m, m // 2, m // 4, m // 8, m // 8], True)
+    bad, text = _step_line(torch, runs)
+    (_, ga, _), (_, gb, _) = runs
+    head = max(_per_tensor(ga, gb, "max")[k] for k in ("final.weight", "final.bias"))
+    line = (f"card vs CPU, Res16UNet14A train step at M={m} ({n} voxels): {text}, "
+            f"classifier head {head:.2e} of max")
+    if bad or head > HEAD_GRAD_RTOL:
+        raise AssertionError(line)
+    print(line, flush=True)
+
+
+def overfit_check(torch, dev, card):
+    """30 SGD steps of Res16UNet14A on one fixed small batch on the card:
+    the mean of the last 5 losses must be below the mean of the first 5."""
+    from seggroup_tpu_torch.cli.stage2_train_minkunet import train_step
+
+    m, n = 2048, 1500
+    st, labels = _small_batch(torch, m, n, 6)
+    st, labels = st.to(dev), labels.to(dev)
+    model, optimizer, scheduler = _train_setup(torch, dev, "Res16UNet14A",
+                                               [m, m // 2, m // 4, m // 8, m // 8], 2)
+    losses = [float(train_step(model, optimizer, scheduler, st, labels)[0])
+              for _ in range(OVERFIT_STEPS)]
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    line = (f"overfit, Res16UNet14A on one batch of {n} voxels, {OVERFIT_STEPS} steps: mean "
+            f"loss of the first 5 {first:.4f}, of the last 5 {last:.4f}; on {card}")
+    if not (np.isfinite(losses).all() and last < first):
+        raise AssertionError(f"{line}; losses {losses}")
+    print(line, flush=True)
+
+
 def build_all() -> None:
     """Build every kernel, one nvcc per source, all started together."""
     from seggroup_tpu_torch.ops import cuda_fps
-    from seggroup_tpu_torch.sparse import cuda_subm_conv
+    from seggroup_tpu_torch.sparse import cuda_subm_conv, cuda_subm_dw
 
     def timed(build):
         t0 = time.perf_counter()
         lib, log = build()
         return lib, log, time.perf_counter() - t0
 
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        jobs = [pool.submit(timed, mod.build) for mod in (cuda_fps, cuda_subm_conv)]
+    mods = (cuda_fps, cuda_subm_conv, cuda_subm_dw)
+    with ThreadPoolExecutor(max_workers=len(mods)) as pool:
+        jobs = [pool.submit(timed, mod.build) for mod in mods]
         for job in jobs:
             lib, log, seconds = job.result()
             print(f"built {os.path.relpath(lib, ROOT)} in {seconds:.2f} s", flush=True)
@@ -477,14 +941,25 @@ def main() -> int:
     build_all()
 
     k1 = check_fps(torch, dev, card)
-    k2 = check_subm_conv(torch, dev, card)
+    bench = bench_rulebooks(torch, dev)
+    k2 = check_subm_conv(torch, dev, card, bench)
+    k3 = check_subm_dw(torch, dev, card, bench)
     launches = run_main_path(torch, dev, card)
     card_vs_cpu(torch, dev)
-    k2["launches"] = run_stage2_path(torch, dev, card)
+    inference_k2 = run_stage2_path(torch, dev, card)
     minkunet_card_vs_cpu(torch, dev)
+    train = run_train_path(torch, dev, card)
+    train_card_vs_cpu(torch, dev)
+    overfit_check(torch, dev, card)
 
     k1["launches"] = launches["masked_fps"]
-    print(json.dumps({"kernels": [k1, k2]}), flush=True)
+    # the training path runs both kernels; K2's count on the inference path
+    # stands beside it
+    k2["launches"] = train["subm_conv"]
+    k2["launches_by_path"] = {"stage2_semantic_inference": inference_k2,
+                              "stage2_training": train["subm_conv"]}
+    k3["launches"] = train["subm_dw"]
+    print(json.dumps({"kernels": [k1, k2, k3]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

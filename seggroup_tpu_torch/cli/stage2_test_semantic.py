@@ -6,9 +6,11 @@ confusion-matrix mIoU and per-class AP.
     python -m seggroup_tpu_torch.cli.stage2_test_semantic --synthetic 2
     python -m seggroup_tpu_torch.cli.stage2_test_semantic --synthetic 2 --device cpu
 
-Runs on the card unless `--device cpu`. Not ported: checkpoint restore (the
-model runs on random weights from seed 0, with a warning), the KPConv
-branch, and prepared ScanNet scenes (they wait for data/scannet.py)."""
+Runs on the card unless `--device cpu`. The weights are the latest
+checkpoint of checkpoints/<exp_name>/minkunet that the training driver
+(cli/stage2_train_minkunet.py) wrote; without one the model runs on random
+weights from seed 0, with a warning. Not ported: the KPConv branch, and
+prepared ScanNet scenes (they wait for data/scannet.py)."""
 
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ from seggroup_tpu_torch.eval.semantic import (average_precision, confusion_matri
                                               miou_from_confusion)
 from seggroup_tpu_torch.models.minkunet import MinkUNet, make_minkunet
 from seggroup_tpu_torch.sparse.tensor import SparseTensor
+from seggroup_tpu_torch.utils.checkpoint import CheckpointManager
 
 
 def level_caps(capacity: int) -> list[int]:
@@ -63,7 +66,7 @@ def test_semantic_minkunet(model: MinkUNet,
             vb = make_voxel_batch([(coords, colors, labels)], capacity, voxel_size)
             st = SparseTensor(torch.from_numpy(vb.coords), torch.from_numpy(vb.feats),
                               torch.from_numpy(vb.valid), torch.tensor(int(vb.num))).to(dev)
-        with phase("forward"):
+        with phase("forward"), torch.no_grad():
             logits = model(st, train=False, phase_seconds=phase_seconds)
         with phase("score"):
             # voxel -> point; p2v == -1 marks points whose voxel overflowed
@@ -101,6 +104,7 @@ def test_semantic_minkunet(model: MinkUNet,
 
 def main(argv: Sequence[str] | None = None):
     p = argparse.ArgumentParser("stage-2 semantic eval (mIoU), MinkUNet")
+    p.add_argument("--exp_name", type=str, default="exp")
     p.add_argument("--synthetic", type=int, default=0,
                    help="use N synthetic scenes instead of prepared ScanNet")
     p.add_argument("--variant", type=str, default="Res16UNet34C")
@@ -118,7 +122,13 @@ def main(argv: Sequence[str] | None = None):
                                   "data/scannet.py; use --synthetic N")
     model = make_minkunet(args.variant, out_channels=args.num_classes,
                           level_caps=level_caps(args.capacity), device=dev)
-    print("WARNING: random weights", flush=True)
+    ckpt = CheckpointManager(os.path.join("checkpoints", args.exp_name, "minkunet"))
+    restored = ckpt.restore(map_location=dev)
+    if restored is not None:
+        model.load_state_dict(restored["model"])
+        print(f"loaded checkpoint {ckpt.latest_step()}", flush=True)
+    else:
+        print("WARNING: random weights", flush=True)
     scenes = []
     for i in range(args.synthetic):
         name = f"synthetic{i:04d}"

@@ -1,0 +1,245 @@
+"""Stage-2 semantic segmentation training: MinkowskiNet Res16UNet on pseudo
+labels (cli/stage2_train_minkunet.py of the JAX package; reference
+minkowski/main.py + lib/train.py:29-176): an iteration-based loop, SGD with
+PolyLR by default, the masked mean NLL with an ignore label, periodic
+validation that keeps the best checkpoint, and a STOP file.
+
+Host threads (utils/prefetch.py) build the augmented voxel batches in numpy
+ahead of the card; the main thread moves each batch to the card and runs
+`train_step`: the forward with BatchNorm batch statistics, the backward
+through the submanifold convs' kernels (K2 for the data gradient, K3 for the
+weight gradient), and the optimizer step. The confusion matrix accumulates
+on the card and is read every 10 iterations.
+
+    python -m seggroup_tpu_torch.cli.stage2_train_minkunet --synthetic 16 --max_iter 100
+    python -m seggroup_tpu_torch.cli.stage2_train_minkunet --synthetic 2 --max_iter 2 \\
+        --model Res16UNet14A --capacity 4096 --batch_size 2 --device cpu
+
+Runs on the card unless `--device cpu`. Not ported: `--plan_mode` (the port
+builds no window plans), data parallelism (`--num_devices` > 1 raises; it
+waits for the port of parallel/dp.py), prepared ScanNet scenes."""
+
+from __future__ import annotations
+
+import argparse
+import os
+import time
+from collections.abc import Callable, Sequence
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from seggroup_tpu_torch.cli.stage1_common import (SceneSource, add_common_args, dump_config,
+                                                  should_stop)
+from seggroup_tpu_torch.cli.stage2_common import scene_to_training_tuple
+from seggroup_tpu_torch.cli.stage2_test_semantic import level_caps
+from seggroup_tpu_torch.data.voxel_dataset import IGNORE_LABEL, VoxelBatch, make_voxel_batch
+from seggroup_tpu_torch.device import PhaseClock, resolve_device
+from seggroup_tpu_torch.eval.semantic import confusion_matrix, miou_from_confusion
+from seggroup_tpu_torch.models.minkunet import MinkUNet, make_minkunet
+from seggroup_tpu_torch.solvers import ScheduledLR, make_optimizer, make_schedule
+from seggroup_tpu_torch.sparse.tensor import SparseTensor
+from seggroup_tpu_torch.utils.checkpoint import CheckpointManager, lenient_restore
+from seggroup_tpu_torch.utils.logging import IOStream
+from seggroup_tpu_torch.utils.prefetch import HostPrefetcher
+from seggroup_tpu_torch.utils.tb import ScalarWriter
+
+
+def masked_nll(logits: torch.Tensor, labels: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Mean negative log-likelihood over the valid, labelled rows (the JAX
+    driver's loss, cli/stage2_train_minkunet.py:213-218)."""
+    ok = valid & (labels != IGNORE_LABEL)
+    lp = F.log_softmax(logits, dim=-1)
+    target = torch.clamp(labels, 0, logits.shape[1] - 1).long()
+    nll = -lp.gather(1, target[:, None])[:, 0]
+    return torch.where(ok, nll, 0.0).sum() / torch.clamp(ok.sum(), min=1)
+
+
+def train_step(model: MinkUNet, optimizer: torch.optim.Optimizer, scheduler: ScheduledLR,
+               st: SparseTensor, labels: torch.Tensor,
+               phase_seconds: dict | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """One training step on the model's device: the forward with BatchNorm
+    batch statistics (which updates the running statistics), the loss, the
+    backward, the optimizer step and the learning-rate schedule. Returns
+    (loss, confusion matrix of the step's argmax over valid rows), both on
+    the device, so nothing waits for it. With `phase_seconds`, the device is
+    synchronised around "forward", "backward" and "optimizer", and their wall
+    seconds are added to the dict."""
+    phase = PhaseClock(st.coords.device, phase_seconds)
+    with phase("forward"):
+        logits = model(st, train=True)
+        loss = masked_nll(logits, labels, st.valid)
+    with phase("backward"):
+        optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+    with phase("optimizer"):
+        optimizer.step()
+        scheduler.step()
+    hist = confusion_matrix(logits.detach().argmax(-1),
+                            torch.where(st.valid, labels, IGNORE_LABEL), logits.shape[1])
+    return loss.detach(), hist
+
+
+def make_train_batch(scene_tuple: Callable[[int], tuple], pool: Sequence[int], step: int,
+                     seed: int, batch_size: int, capacity: int, voxel_size: float,
+                     augment: bool) -> VoxelBatch:
+    """The voxel batch of `step`: batch_size scenes drawn from `pool` and
+    augmented with the generator seeded by (seed, step), so any thread can
+    build any step's batch. `scene_tuple(i)` gives scene i's training tuple."""
+    rng = np.random.default_rng((seed, step))
+    idx = rng.integers(0, len(pool), size=batch_size)
+    tuples = [scene_tuple(int(pool[int(i)])) for i in idx]
+    return make_voxel_batch(tuples, capacity, voxel_size, rng=rng, augment=augment)
+
+
+def batch_to_device(vb: VoxelBatch, dev: torch.device) -> tuple[SparseTensor, torch.Tensor]:
+    st = SparseTensor(torch.from_numpy(vb.coords), torch.from_numpy(vb.feats),
+                      torch.from_numpy(vb.valid), torch.tensor(int(vb.num), dtype=torch.int32))
+    return st.to(dev), torch.from_numpy(vb.labels).to(dev)
+
+
+def main(argv: Sequence[str] | None = None):
+    p = argparse.ArgumentParser("stage-2 MinkUNet semantic training")
+    add_common_args(p)
+    p.add_argument("--model", type=str, default="Res16UNet34C")
+    p.add_argument("--pseudo_root", type=str, default=None,
+                   help="results/<exp> dir with stage-1 pseudo labels; "
+                        "default trains on GT (fully-supervised upper bound)")
+    p.add_argument("--voxel_size", type=float, default=0.02)
+    p.add_argument("--capacity", type=int, default=2 ** 17)
+    p.add_argument("--batch_size", type=int, default=8)
+    p.add_argument("--lr", type=float, default=1e-1)
+    p.add_argument("--optimizer", type=str, default="SGD")
+    p.add_argument("--scheduler", type=str, default="PolyLR")
+    p.add_argument("--max_iter", type=int, default=60000)
+    p.add_argument("--val_freq", type=int, default=1000)
+    p.add_argument("--val_frac", type=float, default=0.1,
+                   help="fraction of scenes held out for validation")
+    p.add_argument("--num_classes", type=int, default=20)
+    p.add_argument("--prefetch_workers", type=int, default=2)
+    p.add_argument("--prefetch_depth", type=int, default=3)
+    p.add_argument("--resume", action="store_true",
+                   help="restore the model, optimizer and schedule from the latest "
+                        "checkpoint and continue the iteration counter")
+    p.add_argument("--weights", type=str, default=None,
+                   help="initialize the model from this checkpoint dir, keeping "
+                        "fresh values where names or shapes differ")
+    p.add_argument("--device", type=str, default="cuda")
+    args = p.parse_args(argv)
+
+    dev = resolve_device(args.device)
+    if args.num_devices not in (None, 1):
+        raise NotImplementedError("data parallelism waits for the port of parallel/dp.py")
+    exp_dir = os.path.join("checkpoints", args.exp_name)
+    io = IOStream(os.path.join(exp_dir, "minkunet.log"))
+    tb = ScalarWriter(os.path.join(exp_dir, "tb"), enabled=args.tensorboard)
+    dump_config(args, "stage2_minkunet")
+    source = SceneSource(args)
+    n_val = int(len(source) * args.val_frac)
+    if args.val_frac > 0 and n_val == 0 and len(source) > 1:
+        n_val = 1
+    val_idx = list(range(len(source) - n_val, len(source)))
+    train_idx = list(range(len(source) - n_val)) or val_idx
+    io.cprint(f"scenes: {len(train_idx)} train / {len(val_idx)} val  model: {args.model}")
+
+    def scene_tuple(i: int):
+        scene, extras = source.get(i)
+        return scene_to_training_tuple(scene, extras, args.pseudo_root, source.names[i],
+                                       args.pseudo_root is not None)
+
+    def make_batch(step, pool, augment):
+        return make_train_batch(scene_tuple, pool, step, args.seed, args.batch_size,
+                                args.capacity, args.voxel_size, augment)
+
+    model = make_minkunet(args.model, out_channels=args.num_classes,
+                          level_caps=level_caps(args.capacity), seed=args.seed, device=dev)
+    n_params = sum(x.numel() for x in model.parameters())
+    io.cprint(f"Network parameters: {n_params / 1e6:.2f}M")
+    schedule = make_schedule(args.scheduler, args.lr, max_iter=args.max_iter)
+    optimizer, scheduler = make_optimizer(args.optimizer, model.parameters(), schedule)
+    ckpt = CheckpointManager(os.path.join(exp_dir, "minkunet"), pow2_retention=True)
+    best_ckpt = CheckpointManager(os.path.join(exp_dir, "minkunet_best"))
+    if args.weights:
+        state, n_loaded, n_tot = lenient_restore(args.weights, model.state_dict(),
+                                                 log=io.cprint)
+        model.load_state_dict(state)
+        io.cprint(f"lenient init: {n_loaded}/{n_tot} tensors from {args.weights}")
+    start_it = 0
+    if args.resume:
+        restored = ckpt.restore(map_location=dev)
+        if restored is not None:
+            model.load_state_dict(restored["model"])
+            optimizer.load_state_dict(restored["optimizer"])
+            scheduler.load_state_dict(restored["scheduler"])
+            start_it = ckpt.latest_step()
+            io.cprint(f"resumed from iter {start_it} "
+                      f"(lr continues at {schedule(start_it):.4g})")
+
+    def save_state(it):
+        ckpt.save(it, {"model": model.state_dict(), "optimizer": optimizer.state_dict(),
+                       "scheduler": scheduler.state_dict()})
+
+    def validate():
+        hist = torch.zeros((args.num_classes, args.num_classes), dtype=torch.int64,
+                           device=dev)
+        with torch.no_grad():
+            for j, vi in enumerate(val_idx):
+                st, labels = batch_to_device(make_batch(10_000_000 + j, [vi], False), dev)
+                logits = model(st, train=False)
+                hist += confusion_matrix(logits.argmax(-1),
+                                         torch.where(st.valid, labels, IGNORE_LABEL),
+                                         args.num_classes)
+        return miou_from_confusion(hist.cpu().numpy())[0]
+
+    prefetch = HostPrefetcher(lambda s: make_batch(s + 1, train_idx, True),
+                              depth=args.prefetch_depth, workers=args.prefetch_workers,
+                              start=start_it)
+    hist_acc = np.zeros((args.num_classes, args.num_classes))
+    hist_dev = None  # device-side accumulator between logging reads
+    best_val = -1.0
+    t_window = time.time()
+    it_window = start_it
+    it = start_it
+    try:
+        for it in range(start_it + 1, args.max_iter + 1):
+            st, labels = batch_to_device(next(prefetch), dev)
+            loss, hist = train_step(model, optimizer, scheduler, st, labels)
+            hist_dev = hist if hist_dev is None else hist_dev + hist
+            if it % 10 == 0 or it == args.max_iter:
+                hist_acc = hist_acc + hist_dev.cpu().numpy()
+                hist_dev = None
+                miou, _ = miou_from_confusion(hist_acc)
+                io.cprint("iter %d/%d  loss %.4f  running mIoU %.2f%%  lr %.4g  (%.2fs/it)"
+                          % (it, args.max_iter, float(loss), 100 * miou, schedule(it),
+                             (time.time() - t_window) / max(1, it - it_window)))
+                tb.add_scalar("train/loss", float(loss), it)
+                tb.add_scalar("train/miou", 100 * miou, it)
+                tb.add_scalar("train/lr", float(schedule(it)), it)
+                t_window = time.time()
+                it_window = it
+            if should_stop(args.exp_name):
+                io.cprint("STOP file found — saving and exiting")
+                save_state(it)
+                break
+            if it % args.val_freq == 0 or it == args.max_iter:
+                save_state(it)
+                val_miou = validate()
+                marker = ""
+                if val_miou > best_val:
+                    best_val = val_miou
+                    best_ckpt.save(it, {"model": model.state_dict()})
+                    marker = "  (new best)"
+                io.cprint(f"==> saved iter {it}  val mIoU {100 * val_miou:.2f}%{marker}")
+                tb.add_scalar("val/miou", 100 * val_miou, it)
+                t_window = time.time()
+                it_window = it
+    finally:
+        prefetch.close()
+        tb.close()
+        io.close()
+    return it, best_val
+
+
+if __name__ == "__main__":
+    main()

@@ -6,8 +6,8 @@
 true division by the voxel size, floor, shift to non-negative, voxels sorted
 by the packed 16-bit (x, y, z) key, each voxel's first point as its
 representative. It gives the same coords, feats, labels and point2voxel.
-
-Not ported: `augment=True` (the training transforms)."""
+With `augment=True` the training recipe of data/transforms.py runs first,
+drawing from `rng` in the JAX package's order."""
 
 from __future__ import annotations
 
@@ -15,6 +15,8 @@ from collections.abc import Iterable
 from typing import NamedTuple
 
 import numpy as np
+
+from seggroup_tpu_torch.data import transforms as T
 
 
 class VoxelBatch(NamedTuple):
@@ -57,16 +59,25 @@ def make_voxel_batch(
     scenes: Iterable[tuple[np.ndarray, np.ndarray, np.ndarray]],
     capacity: int,
     voxel_size: float = 0.02,
+    rng: np.random.Generator | None = None,
     augment: bool = False,
 ) -> VoxelBatch:
     """scenes: iterable of (coords (N,3) meters, colors (N,3) 0..255,
     labels (N,) int with IGNORE_LABEL for unlabeled). Voxels past
-    `capacity` are dropped; their points get point2voxel -1."""
-    if augment:
-        raise NotImplementedError("augment=True (the training transforms) is not ported")
+    `capacity` are dropped; their points get point2voxel -1.
+
+    With augment=True (which needs `rng`) the reference training recipe
+    applies to each scene, RandomDropout (minkowski lib/dataset.py:451,
+    transforms.py:141-156) before the geometric and chromatic transforms.
+    The colors map to [-1, 1] (the stage-1 convention)."""
+    if augment and rng is None:
+        raise ValueError("augment=True needs an rng")
     all_c, all_f, all_l, p2v_list = [], [], [], []
     total = 0
     for b, (coords, colors, labels) in enumerate(scenes):
+        if augment:
+            coords, colors, labels = T.random_dropout(coords, colors, labels, rng)
+            coords, colors = T.default_train_transform(coords, colors, rng)
         ic, f, l, p2v = voxelize_scene(coords, colors, labels, voxel_size)
         keep = min(len(ic), capacity - total)
         if keep < len(ic):

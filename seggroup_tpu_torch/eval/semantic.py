@@ -14,11 +14,15 @@ import torch
 
 def confusion_matrix(pred: torch.Tensor, label: torch.Tensor, num_classes: int,
                      ignore: int = 255) -> torch.Tensor:
-    """(C, C) int64 counts; rows = ground truth, columns = prediction."""
+    """(C, C) int64 counts; rows = ground truth, columns = prediction.
+    Ignored rows count into a spare bin, so nothing waits for the device."""
     ok = (label != ignore) & (label >= 0) & (label < num_classes)
-    idx = label.long() * num_classes + torch.clamp(pred.long(), 0, num_classes - 1)
-    flat = torch.bincount(idx[ok], minlength=num_classes * num_classes)
-    return flat.reshape(num_classes, num_classes)
+    cc = num_classes * num_classes
+    idx = torch.where(ok, label.long() * num_classes
+                      + torch.clamp(pred.long(), 0, num_classes - 1), cc)
+    flat = torch.zeros(cc + 1, dtype=torch.int64, device=idx.device)
+    flat.index_add_(0, idx, torch.ones_like(idx))
+    return flat[:cc].reshape(num_classes, num_classes)
 
 
 def miou_from_confusion(hist: np.ndarray) -> tuple[float, np.ndarray]:

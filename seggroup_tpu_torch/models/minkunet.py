@@ -1,4 +1,4 @@
-"""MinkowskiNet Res16UNet family on the sparse engine, inference
+"""MinkowskiNet Res16UNet family on the sparse engine
 (seggroup_tpu/models/minkunet.py:33-380).
 
 The same forward as the flax `MinkUNet` with `plan=None` over 4-column
@@ -9,10 +9,13 @@ per level and reused by the decoder. Module and attribute names are the
 flax names, so `models.convert.minkunet_params_from_flax` reads straight
 across.
 
-BatchNorm runs on its running statistics. Not ported: training
-(`train=True` raises; with it the BN momentum), `SparseInstanceNorm` and
-the other norm types, the ST/Tesseract variants (raise), host plans
-(`plan=`), `ResUNet` and `MinkUNetHyper`."""
+With `train=True` BatchNorm normalises by the batch statistics of the valid
+voxels and updates its running statistics (momentum 0.02, the torch
+convention); with `train=False` it runs on the running statistics. The
+forward records the autograd graph unless the caller turns it off
+(`torch.no_grad()`, as the inference drivers do). Not ported:
+`SparseInstanceNorm` and the other norm types, the ST/Tesseract variants
+(raise), host plans (`plan=`), `ResUNet` and `MinkUNetHyper`."""
 
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ from seggroup_tpu_torch.sparse.conv import (build_subm_rulebook, inverse_conv_up
 from seggroup_tpu_torch.sparse.tensor import SparseTensor
 
 INIT_DIM = 32  # the stem's width (Res16UNetBase INIT_DIM)
+BN_MOMENTUM = 0.02  # weight of the batch in the running statistics (reference bn_momentum)
 
 
 def _conv_kernel(k: int, cin: int, cout: int) -> nn.Parameter:
@@ -37,8 +41,11 @@ def _conv_kernel(k: int, cin: int, cout: int) -> nn.Parameter:
 
 
 class SparseBatchNorm(nn.Module):
-    """BatchNorm over valid voxels, inference: running `mean`/`var`
-    normalise, `scale`/`bias` map (the flax names)."""
+    """BatchNorm over valid voxels, `scale`/`bias` map, running `mean`/`var`
+    (the flax names). Training normalises by the masked batch mean and the
+    biased variance over the valid rows, and updates the running statistics
+    as new = (1 - BN_MOMENTUM) * old + BN_MOMENTUM * batch, the biased
+    variance included (F.batch_norm would keep the unbiased one)."""
 
     def __init__(self, c: int, epsilon: float = 1e-5):
         super().__init__()
@@ -50,9 +57,16 @@ class SparseBatchNorm(nn.Module):
 
     def forward(self, feats: torch.Tensor, valid: torch.Tensor, train: bool) -> torch.Tensor:
         if train:
-            raise NotImplementedError("SparseBatchNorm batch statistics (train=True) "
-                                      "are not ported")
-        y = (feats - self.mean) * torch.rsqrt(self.var + self.epsilon)
+            w = valid.to(feats.dtype)[:, None]
+            cnt = torch.clamp(w.sum(), min=1.0)
+            mean = (feats * w).sum(0) / cnt
+            var = ((feats - mean).square() * w).sum(0) / cnt
+            with torch.no_grad():
+                self.mean.copy_((1 - BN_MOMENTUM) * self.mean + BN_MOMENTUM * mean)
+                self.var.copy_((1 - BN_MOMENTUM) * self.var + BN_MOMENTUM * var)
+        else:
+            mean, var = self.mean, self.var
+        y = (feats - mean) * torch.rsqrt(var + self.epsilon)
         return y * self.scale + self.bias
 
 
@@ -190,15 +204,13 @@ class MinkUNet(nn.Module):
             st = getattr(self, f"{name}_{i}")(st, rb, train, phase)
         return st
 
-    @torch.no_grad()
     def forward(self, st: SparseTensor, train: bool = False,
                 phase_seconds: dict | None = None) -> torch.Tensor:
-        """(M, out_channels) logits, zero on invalid rows. With
-        `phase_seconds`, the card is synchronised around the rulebook and
-        downsampling builds ("rulebooks") and the submanifold convs
-        ("subm_conv"), and their wall seconds are added to the dict."""
-        if train:
-            raise NotImplementedError("MinkUNet training is not ported")
+        """(M, out_channels) logits, zero on invalid rows; `train` selects
+        BatchNorm's batch statistics. With `phase_seconds`, the card is
+        synchronised around the rulebook and downsampling builds
+        ("rulebooks") and the submanifold convs ("subm_conv"), and their wall
+        seconds are added to the dict."""
         if st.coords.shape[1] != 4:
             raise NotImplementedError("only 4-column (batch, x, y, z) coords are ported")
         phase = PhaseClock(st.coords.device, phase_seconds)

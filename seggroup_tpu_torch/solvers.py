@@ -1,0 +1,76 @@
+"""Learning-rate schedules and optimizers (seggroup_tpu/solvers.py).
+
+The five schedules are the JAX package's formulas. `make_optimizer` gives
+torch.optim's SGD (momentum 0.9) or Adam with an L2 weight decay of 1e-4
+added to the gradient, which is optax's `add_decayed_weights` followed by
+`sgd` or `adam`. `ScheduledLR` sets the learning rate of step s to
+schedule(s), s counted from 0 as optax counts its updates."""
+
+from __future__ import annotations
+
+from collections.abc import Callable, Iterable
+
+import torch
+
+Schedule = Callable[[int], float]
+
+# the JAX package's schedule and optimizer constants
+POLY_POWER = 0.9
+STEP_SIZE, STEP_GAMMA = 20000, 0.1
+EXP_GAMMA, EXP_STEP_SIZE = 0.9, 445
+SGD_MOMENTUM = 0.9
+ADAM_BETAS = (0.9, 0.999)
+WEIGHT_DECAY = 1e-4
+
+
+def make_schedule(name: str, base_lr: float, *, max_iter: int = 60000) -> Schedule:
+    if name == "PolyLR":
+        return lambda s: base_lr * (1 - s / (max_iter + 1)) ** POLY_POWER
+    if name == "SquaredLR":
+        return lambda s: base_lr * (1 - s / (max_iter + 1)) ** 2
+    if name == "StepLR":
+        return lambda s: base_lr * STEP_GAMMA ** (s // STEP_SIZE)
+    if name == "ExpLR":
+        return lambda s: base_lr * EXP_GAMMA ** (s / EXP_STEP_SIZE)
+    if name == "constant":
+        return lambda s: base_lr
+    raise ValueError(name)
+
+
+def make_optimizer(name: str, params: Iterable[torch.nn.Parameter], schedule: Schedule
+                   ) -> tuple[torch.optim.Optimizer, "ScheduledLR"]:
+    """(optimizer, its ScheduledLR); the optimizer starts at schedule(0)."""
+    lr = float(schedule(0))
+    if name == "SGD":
+        opt = torch.optim.SGD(params, lr=lr, momentum=SGD_MOMENTUM, weight_decay=WEIGHT_DECAY)
+    elif name == "Adam":
+        opt = torch.optim.Adam(params, lr=lr, betas=ADAM_BETAS, weight_decay=WEIGHT_DECAY)
+    else:
+        raise ValueError(name)
+    return opt, ScheduledLR(opt, schedule)
+
+
+class ScheduledLR:
+    """Sets every parameter group's learning rate to schedule(step); `step()`
+    advances after each optimizer step. Its state is the step count."""
+
+    def __init__(self, optimizer: torch.optim.Optimizer, schedule: Schedule, start: int = 0):
+        self.optimizer = optimizer
+        self.schedule = schedule
+        self.count = start
+        self._apply()
+
+    def _apply(self) -> None:
+        for group in self.optimizer.param_groups:
+            group["lr"] = float(self.schedule(self.count))
+
+    def step(self) -> None:
+        self.count += 1
+        self._apply()
+
+    def state_dict(self) -> dict:
+        return {"count": self.count}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.count = int(state["count"])
+        self._apply()

@@ -1,21 +1,26 @@
-"""Gather-GEMM-scatter sparse convolution engine, forward
+"""Gather-GEMM-scatter sparse convolution engine
 (seggroup_tpu/sparse/conv.py).
 
   * Rulebooks: an (M, K) neighbour-row table per kernel, built from sorted
     coordinate keys (sparse/hashing.py); absent neighbours and invalid rows
     hold M. They are exactly the JAX side's.
   * `subm_conv`: out[i] = sum_k W[k]^T feats[nbr[i,k]], bf16 operands by
-    default, float32 sums. On a CUDA tensor it launches kernel K2
-    (sparse/cuda_subm_conv.py) or raises; on a CPU tensor it runs the plain
-    version `subm_conv_plain`.
+    default, float32 sums, differentiable as the JAX custom VJP is
+    (`_subm_fwd`/`_subm_bwd`): the data gradient is the same conv over the
+    SAME rulebook with flipped, transposed weights, and the weight gradient
+    dW[k] = sum_i feats[nbr[i,k]] (x) dout[i]. On CUDA tensors the forward
+    and the data gradient launch kernel K2 (sparse/cuda_subm_conv.py) and
+    the weight gradient kernel K3 (sparse/cuda_subm_dw.py), or raise; on CPU
+    tensors they run the plain versions `subm_conv_plain` and
+    `subm_dw_plain`.
   * Stride-2 kernel-2 down and up convs partition the fine voxels: down is a
     segment sum over out = in // 2, up one gather. They run in float32 with
-    torch ops, as the JAX side runs them outside any Pallas kernel.
+    torch ops (and differentiate through them), as the JAX side runs them
+    outside any Pallas kernel.
 
-Not ported here: the backward (custom VJP), the windowed Pallas plans
-(`windows=`, sparse/plan.py, device_plan.py), the merge-join rulebook path
-(`assume_sorted=True`), the 5-column spatio-temporal coords, BN statistics
-and global pooling."""
+Not ported here: the windowed Pallas plans (`windows=`, sparse/plan.py,
+device_plan.py), the merge-join rulebook path (`assume_sorted=True`), the
+5-column spatio-temporal coords, and global pooling."""
 
 from __future__ import annotations
 
@@ -23,7 +28,7 @@ import numpy as np
 import torch
 
 from seggroup_tpu_torch.ops.segment_ops import invert_permutation, segment_sum
-from seggroup_tpu_torch.sparse import cuda_subm_conv
+from seggroup_tpu_torch.sparse import cuda_subm_conv, cuda_subm_dw
 from seggroup_tpu_torch.sparse.hashing import (INT32_MAX, lookup, lower_bound,
                                                pack_keys, sort_coords)
 from seggroup_tpu_torch.sparse.tensor import SparseTensor
@@ -194,26 +199,87 @@ def subm_conv_plain(feats: torch.Tensor, weights: torch.Tensor, rulebook: torch.
     return out
 
 
+def subm_dw_plain(feats: torch.Tensor, dout: torch.Tensor, rulebook: torch.Tensor,
+                  compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """K3's plain version (the weight gradient of `_subm_bwd` on the JAX
+    side): dW[k] = sum_i feats[nbr[i,k]] (x) dout[i], both operands rounded
+    to `compute_dtype`, absent neighbours reading a zero pad row M, products
+    summed in float32 over SUBM_CHUNK rows at a time. Returns (K, Cin, Cout)
+    float32."""
+    m, cin = feats.shape
+    kvol = rulebook.shape[1]
+    feats_pad = torch.cat([feats.to(compute_dtype),
+                           feats.new_zeros((1, cin), dtype=compute_dtype)])
+    do = dout.to(compute_dtype).to(torch.float32)
+    dw = torch.zeros((kvol * cin, dout.shape[1]), dtype=torch.float32, device=feats.device)
+    for s in range(0, m, SUBM_CHUNK):
+        rb = rulebook[s:s + SUBM_CHUNK].long()
+        g = feats_pad[rb].to(torch.float32).reshape(len(rb), kvol * cin)
+        dw += g.T @ do[s:s + SUBM_CHUNK]
+    return dw.reshape(kvol, cin, -1)
+
+
+def _subm_apply(feats, weights, rulebook, compute_dtype):
+    """K2 on the card (bf16 only), the plain version on the CPU."""
+    if feats.is_cuda:
+        if compute_dtype != torch.bfloat16:
+            raise ValueError("the CUDA subm_conv kernels compute in bfloat16 only")
+        return cuda_subm_conv.subm_conv_cuda(feats.to(torch.bfloat16),
+                                             weights.to(torch.bfloat16), rulebook)
+    return subm_conv_plain(feats, weights, rulebook, compute_dtype)
+
+
+def _subm_dw(feats, dout, rulebook, compute_dtype):
+    """K3 on the card (bf16 only), the plain version on the CPU."""
+    if feats.is_cuda:
+        if compute_dtype != torch.bfloat16:
+            raise ValueError("the CUDA subm_conv kernels compute in bfloat16 only")
+        return cuda_subm_dw.subm_dw_cuda(feats.to(torch.bfloat16),
+                                         dout.to(torch.bfloat16), rulebook)
+    return subm_dw_plain(feats, dout, rulebook, compute_dtype)
+
+
+class SubmConvFunction(torch.autograd.Function):
+    """The submanifold conv with the JAX custom VJP's backward. It saves
+    (feats, weights, rulebook), as the JAX residuals are; the gathered
+    block is recomputed, never stored."""
+
+    @staticmethod
+    def forward(ctx, feats, weights, rulebook, compute_dtype):
+        ctx.save_for_backward(feats, weights, rulebook)
+        ctx.compute_dtype = compute_dtype
+        return _subm_apply(feats, weights, rulebook, compute_dtype)
+
+    @staticmethod
+    def backward(ctx, dout):
+        feats, weights, rulebook = ctx.saved_tensors
+        dfeats = dw = None
+        if ctx.needs_input_grad[0]:
+            # nbr[i,k] = j  <=>  nbr[j,K-1-k] = i (the offset set is symmetric
+            # for odd kernels): the data gradient is a gather over the same
+            # rulebook, not a scatter
+            w_t = weights.flip(0).transpose(1, 2)
+            dfeats = _subm_apply(dout, w_t, rulebook, ctx.compute_dtype).to(feats.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = _subm_dw(feats, dout, rulebook, ctx.compute_dtype).to(weights.dtype)
+        return dfeats, dw, None, None
+
+
 def subm_conv(st: SparseTensor, weights: torch.Tensor, rulebook: torch.Tensor,
               compute_dtype: torch.dtype = torch.bfloat16,
               windows: dict | None = None) -> torch.Tensor:
     """weights (K, Cin, Cout); returns (M, Cout) float32, zero on invalid
     rows. out[i] = sum_k W[k]^T feats[nbr[i,k]] over present neighbours.
+    Differentiable in the features and the weights (`SubmConvFunction`).
 
-    On the card this is kernel K2, which takes bf16 operands only; on the
-    CPU the plain version at `compute_dtype`."""
+    On the card the kernels K2 and K3 take bf16 operands only; on the CPU
+    the plain versions run at `compute_dtype`."""
     if windows is not None:
         raise NotImplementedError("window plans (sparse/plan.py) are not ported")
     if weights.shape[0] % 2 != 1:
         raise ValueError("subm_conv needs an odd (symmetric) kernel")
     feats = torch.where(st.valid[:, None], st.feats, 0.0)
-    if feats.is_cuda:
-        if compute_dtype != torch.bfloat16:
-            raise ValueError("the CUDA subm_conv kernel computes in bfloat16 only")
-        out = cuda_subm_conv.subm_conv_cuda(feats.to(torch.bfloat16),
-                                            weights.to(torch.bfloat16), rulebook)
-    else:
-        out = subm_conv_plain(feats, weights, rulebook, compute_dtype)
+    out = SubmConvFunction.apply(feats, weights, rulebook, compute_dtype)
     return torch.where(st.valid[:, None], out, 0.0)
 
 

@@ -57,7 +57,7 @@ def regime(cin: int) -> str:
     return K2AB_CHUNKED
 
 
-def _pad8(x: torch.Tensor, dim: int) -> torch.Tensor:
+def pad8(x: torch.Tensor, dim: int) -> torch.Tensor:
     extra = -x.shape[dim] % 8
     if extra == 0:
         return x
@@ -92,8 +92,8 @@ def subm_conv_cuda(feats: torch.Tensor, weights: torch.Tensor,
     if m == 0 or cout == 0:
         return torch.zeros((m, cout), dtype=torch.float32, device=dev)
     lib = _load()
-    f = _pad8(feats, 1).contiguous()
-    w = _pad8(_pad8(weights, 1), 2).contiguous()
+    f = pad8(feats, 1).contiguous()
+    w = pad8(pad8(weights, 1), 2).contiguous()
     rb = rulebook.contiguous()
     cin_p, cout_p = f.shape[1], w.shape[2]
     out = torch.empty((m, cout_p), dtype=torch.float32, device=dev)

@@ -9,8 +9,8 @@ import torch
 
 from seggroup_tpu_torch.ops import cuda_fps
 from seggroup_tpu_torch.ops.fps import masked_fps, masked_fps_plain
-from seggroup_tpu_torch.sparse import cuda_subm_conv
-from seggroup_tpu_torch.sparse.conv import subm_conv_plain
+from seggroup_tpu_torch.sparse import cuda_subm_conv, cuda_subm_dw
+from seggroup_tpu_torch.sparse.conv import subm_conv_plain, subm_dw_plain
 
 pytestmark = pytest.mark.cuda
 
@@ -94,3 +94,52 @@ def test_subm_conv_kernel_refuses_float32():
     f, w, rb = (x.to(dev) for x in _subm_case(256, 8, 8))
     with pytest.raises(ValueError):
         cuda_subm_conv.subm_conv_cuda(f.float(), w, rb)
+
+
+@pytest.mark.parametrize("m,cin,cout", [
+    (20000, 3, 32),      # the stem, Cin padded to 8: K3b shift 2
+    (20000, 32, 64),     # K3b shift 2, two Cout tiles
+    (20003, 64, 64),     # K3b shift 1, M not a multiple of the chunk
+    (20000, 128, 96),    # K3a, Cout 96 in a 128-wide tile
+    (8192, 384, 256),    # K3a, the widest
+    (5000, 40, 20),      # Cin and Cout not multiples of 8 (padded)
+    (300, 96, 96),       # one slab: no second pass
+])
+def test_subm_dw_kernel_matches_plain(m, cin, cout):
+    dev = _card()
+    f, _, rb = (x.to(dev) for x in _subm_case(m, cin, cout))
+    g = torch.Generator().manual_seed(m)
+    dout = torch.randn(m, cout, generator=g).to(dev).to(torch.bfloat16)
+    before = cuda_subm_dw.launches
+    got = cuda_subm_dw.subm_dw_cuda(f, dout, rb)
+    assert cuda_subm_dw.launches == before + 1
+    want = subm_dw_plain(f, dout, rb, torch.bfloat16)
+    again = cuda_subm_dw.subm_dw_cuda(f, dout, rb)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (27, cin, cout)
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+    assert torch.equal(got, again)  # no atomics: the same bits on every run
+
+
+def test_subm_conv_backward_on_card_matches_cpu():
+    """dfeats through K2 (flipped, transposed weights) and dW through K3 on
+    the card, against the plain versions on the CPU, at bf16."""
+    from seggroup_tpu_torch.sparse.conv import subm_conv
+    from seggroup_tpu_torch.sparse.tensor import SparseTensor
+
+    dev = _card()
+    m, cin, cout = 4096, 48, 40
+    f, w, rb = _subm_case(m, cin, cout, absent=0.5)
+    valid = torch.arange(m) < m - 50
+    coords = torch.zeros((m, 4), dtype=torch.int32)
+    grads = []
+    for d in ("cpu", dev):
+        feats = f.float().to(d).requires_grad_(True)
+        weights = w.float().to(d).requires_grad_(True)
+        st = SparseTensor(coords.to(d), feats, valid.to(d), torch.tensor(m - 50).to(d))
+        out = subm_conv(st, weights, rb.to(d))
+        (out * torch.linspace(-1, 1, cout, device=d)).sum().backward()
+        grads.append((feats.grad.cpu(), weights.grad.cpu()))
+    for (a, b), name in zip(zip(*grads), ("dfeats", "dW")):
+        assert float((a - b).abs().max()) <= 1e-4 * float(a.abs().max()), name
+    assert (grads[1][0][m - 50:] == 0).all()

@@ -21,7 +21,12 @@ def test_import_leaves_jax_out():
         "import seggroup_tpu_torch.infer, seggroup_tpu_torch.models.convert\n"
         "import seggroup_tpu_torch.ops.cuda_fps, chip_smoke\n"
         "import seggroup_tpu_torch.cli.stage2_test_semantic\n"
-        "import seggroup_tpu_torch.sparse.cuda_subm_conv\n"
+        "import seggroup_tpu_torch.sparse.cuda_subm_conv, seggroup_tpu_torch.sparse.cuda_subm_dw\n"
+        "import seggroup_tpu_torch.cli.stage2_train_minkunet, seggroup_tpu_torch.solvers\n"
+        "import seggroup_tpu_torch.data.transforms, seggroup_tpu_torch.utils.checkpoint\n"
+        "import seggroup_tpu_torch.utils.prefetch, seggroup_tpu_torch.utils.tb\n"
+        "import seggroup_tpu_torch.utils.logging, seggroup_tpu_torch.cli.stage1_common\n"
+        "import seggroup_tpu_torch.profile_forward\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert not bad, bad\n"
     )
@@ -82,3 +87,16 @@ def test_stage2_entry_points_default_to_the_card():
         main(["--synthetic", "1"])
     with pytest.raises(RuntimeError, match="CUDA"):
         make_minkunet("Res16UNet14A")
+
+
+def test_training_driver_defaults_to_the_card(tmp_path, monkeypatch):
+    """The training driver without --device runs on CUDA and raises where
+    there is none; it does not carry on on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    from seggroup_tpu_torch.cli.stage2_train_minkunet import main
+
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["--synthetic", "2", "--max_iter", "1"])
+    assert not (tmp_path / "checkpoints").exists()

@@ -50,6 +50,8 @@ def test_make_voxel_batch_equals_jax(capacity):
     got = T.make_voxel_batch(scenes, capacity, 0.02)
     for name in ("coords", "feats", "labels", "valid", "num"):
         np.testing.assert_array_equal(getattr(got, name), getattr(want, name), err_msg=name)
+    colors = T.voxelize_scene(*scenes[0], 0.02)[1][:capacity]
+    np.testing.assert_array_equal(got.feats[:len(colors)], colors / 127.5 - 1.0)  # normalised
     assert len(got.point2voxel) == len(want.point2voxel)
     for g, w in zip(got.point2voxel, want.point2voxel):
         np.testing.assert_array_equal(g, w)
@@ -58,5 +60,8 @@ def test_make_voxel_batch_equals_jax(capacity):
 
 
 def test_augment_raises():
-    with pytest.raises(NotImplementedError):
+    """Augmentation needs a generator, as on the JAX side (where it is an
+    assert); tests/test_torch_transforms.py holds the augmented batches
+    against JAX."""
+    with pytest.raises(ValueError):
         T.make_voxel_batch([_scene(0)], 2 ** 13, augment=True)
