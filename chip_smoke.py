@@ -32,7 +32,23 @@ Phases, in order; any failure exits non-zero:
      running-statistics forward at 2^14 rows (each gradient tensor held on
      its own); then 30 steps on one fixed batch on the card, whose loss
      must fall;
-  9. a `kernels` JSON line, the card line, then the device line as the last.
+  9. K4, the radius-graph connected-components sweep, against its plain
+     version (labels exactly equal after one sweep and at the fixpoint,
+     bit-equal across two runs) on the doubled point set of a full-width
+     PointGroup forward, on a bench scene clustered on its true labels, and
+     on edge cases; `semantic_radius_cc` on the card against the CPU; K2
+     against its plain version at every PointGroup (Cin, Cout), K = 27 and
+     K = 1;
+ 10. the PointGroup path at full width: instance-segmentation inference
+     over 4 bench-size scenes at the evaluation CLI's defaults (m=16,
+     2^17 points, 2^16 voxels, radius 0.03) through
+     cli.stage2_test_pointgroup.test_instance_pointgroup; K2's and K4's
+     launch counts are read around it, at least one K4 launch per forward;
+     then the clustering and the ScoreNet on the true labels of a scene;
+ 11. PointGroup at a small size on the card and on the CPU: heads within
+     tolerance, clustering exactly equal at shared heads, scores within
+     tolerance at a shared voxel map;
+ 12. a `kernels` JSON line, the card line, then the device line as the last.
 
 Needs one card. Imports nothing of JAX or of the JAX package."""
 
@@ -40,6 +56,7 @@ from __future__ import annotations
 
 import json
 import os
+import platform
 import sys
 import tempfile
 import time
@@ -92,6 +109,24 @@ OVERFIT_STEPS = 30
 # MinkUNet card vs CPU: the tolerance tests/test_torch_minkunet.py holds the
 # port to against JAX (bf16 products, float32 sums in another order)
 LOGIT_ATOL, LOGIT_RTOL, ARGMAX_AGREE = 2e-4, 1e-3, 0.99
+# PointGroup: the evaluation CLI's defaults (cli/stage2_test_pointgroup.py)
+PG_M, PG_POINT_CAP, PG_VOXEL_CAP, PG_RADIUS = 16, 2 ** 17, 2 ** 16, 0.03
+# submanifold convs per forward: the U-Net's stem, 4 per level in its 2 blocks
+# and 5 in its 2 tail blocks (the first has the K=1 branch) below the top of
+# 6 levels; the 2-level ScoreNet 2 * 4 + 5
+PG_SUBM_PER_FORWARD = (1 + 7 * 4 + 6 * 5) + (2 * 4 + 5)
+# every (Cin, Cout) of PointGroup's K=27 submanifold convs at m=16, and of the
+# K=1 branch of the first block after each concatenation
+PG_PAIRS = ([(6, 16)] + [(16 * i, 16 * i) for i in range(1, 8)]
+            + [(32 * i, 16 * i) for i in range(1, 7)])
+PG_K1_PAIRS = [(32 * i, 16 * i) for i in range(1, 7)]
+
+
+def machine_id(torch) -> str:
+    """What tells one machine from another beside a host-bound time: the
+    host's name and the card's UUID."""
+    uuid = getattr(torch.cuda.get_device_properties(0), "uuid", "unknown")
+    return f"host {platform.node()}, card {uuid}"
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -108,6 +143,23 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def cuda_ms_each(fn, reps: int, warmup: int = 2) -> list[float]:
+    """Device milliseconds of each of `reps` calls (one CUDA event pair per
+    call), for a minimum and a median beside the mean."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+             for _ in range(reps)]
+    for start, end in pairs:
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return [start.elapsed_time(end) for start, end in pairs]
 
 
 def fps_cases(torch, dev):
@@ -902,9 +954,429 @@ def overfit_check(torch, dev, card):
     print(line, flush=True)
 
 
+def _pg_scene(i):
+    from seggroup_tpu_torch.cli.stage2_pointgroup_common import scene_instance_tuple
+    from seggroup_tpu_torch.data.synthetic import BENCH_SCENE, make_synthetic_scene
+
+    name = f"bench{i}"
+    return (name, *scene_instance_tuple(make_synthetic_scene(seed=i, **BENCH_SCENE), {}, None,
+                                        name))
+
+
+def _pg_inputs(torch, dev, scene, point_cap, voxel_cap):
+    """One scene as the evaluation CLI hands it to the model: the host
+    batch, and (voxels, p2v, coords, batch_ids, valid) on `dev`."""
+    from seggroup_tpu_torch.cli.stage2_pointgroup_common import make_pg_batch
+    from seggroup_tpu_torch.ops.voxelize import voxel_gather_mean, voxelize
+    from seggroup_tpu_torch.sparse.tensor import SparseTensor
+
+    hb = make_pg_batch([scene[1:]], point_cap, 256)
+    ic = np.floor(hb.coords / VOXEL).astype(np.int32)
+    ic -= ic.min(0)
+    pts = torch.from_numpy(hb.coords).to(dev)
+    batch_ids = torch.from_numpy(hb.batch_ids).to(dev)
+    valid = torch.from_numpy(hb.valid).to(dev)
+    vm = voxelize(torch.from_numpy(ic).to(dev), batch_ids, valid, voxel_cap)
+    feats = torch.cat([torch.from_numpy(hb.feats).to(dev), pts], dim=1)
+    st = SparseTensor(vm.voxel_coords, voxel_gather_mean(feats, vm), vm.voxel_valid,
+                      vm.num_voxels)
+    return hb, (st, vm.point2voxel, pts, batch_ids, valid)
+
+
+def _true_label_heads(torch, dev, hb, shift: float):
+    """Heads that predict the truth: one-hot scores of the true classes
+    (class 0 where unlabelled) and offsets `shift` of the way to the
+    instance's centroid."""
+    labels = torch.from_numpy(np.where(hb.labels >= 0, hb.labels, 0)).to(dev).long()
+    scores = torch.nn.functional.one_hot(labels, 20).float()
+    has_inst = torch.from_numpy(hb.instance_labels >= 0).to(dev)[:, None]
+    to_centre = torch.from_numpy(hb.instance_centroid - hb.coords).to(dev)
+    return scores, torch.where(has_inst, shift * to_centre, 0.0)
+
+
+def cc_problems(torch, dev, model):
+    """(name, coords, batch, valid, classes) on the card: the doubled point
+    set a full-width forward clusters (random weights), a bench scene on its
+    true labels (alone, and doubled with offsets half-way to the centroids),
+    no valid row, valid rows ending inside a tile, and two scenes with
+    interleaved batch ids."""
+    from seggroup_tpu_torch.cli.stage2_pointgroup_common import make_pg_batch
+    from seggroup_tpu_torch.models.pointgroup import PointGroup
+
+    scene = _pg_scene(0)
+    hb, (st, p2v, pts, batch_ids, valid) = _pg_inputs(torch, dev, scene, PG_POINT_CAP,
+                                                      PG_VOXEL_CAP)
+    with torch.no_grad():
+        _, sem, off = model.backbone(st, p2v, valid)
+    out = [("full-width forward, random weights",
+            *PointGroup.clustering_problem(sem, off, pts, batch_ids, valid))]
+    sem_t, off_t = _true_label_heads(torch, dev, hb, 0.5)
+    p2, b2, v2, s2 = PointGroup.clustering_problem(sem_t, off_t, pts, batch_ids, valid)
+    n = PG_POINT_CAP
+    out.append(("bench scene, true labels", p2[:n], batch_ids, v2[:n], s2[:n]))
+    out.append(("bench scene, true labels, doubled with half-way offsets", p2, b2, v2, s2))
+    out.append(("no valid row", p2[:n], batch_ids, torch.zeros_like(v2[:n]), s2[:n]))
+    cut = torch.arange(n, device=dev) < 100_037  # 390 tiles and 197 rows
+    out.append(("valid rows end inside a tile", p2[:n], batch_ids, v2[:n] & cut, s2[:n]))
+    hb2 = make_pg_batch([_pg_scene(2)[1:], _pg_scene(3)[1:]], PG_POINT_CAP, 256,
+                        max_points_per_scene=PG_POINT_CAP // 2)
+    sem_2, off_2 = _true_label_heads(torch, dev, hb2, 0.5)
+    out.append(("two scenes, interleaved batch ids", *PointGroup.clustering_problem(
+        sem_2, off_2, torch.from_numpy(hb2.coords).to(dev),
+        torch.from_numpy(hb2.batch_ids).to(dev), torch.from_numpy(hb2.valid).to(dev))))
+    return out
+
+
+def cc_pair_tests(torch, prep, tile: int) -> tuple[int, int]:
+    """Pair tests of one sweep: (those of the tiles' whole ranges, tile *
+    (hi - lo) summed over tiles and groups, which is what a design that
+    walks each range for every query of the tile performs; those the
+    function needs). The function needs a distance only where the key test
+    can pass: for a valid query row with key k and group g, the rows of its
+    tile's range [lo, hi) whose key lies in k + off[g] - 1 .. k + off[g] + 1,
+    a run of the sorted keys found by two binary searches. Invalid rows keep
+    their label and need none."""
+    from seggroup_tpu_torch.ops import radius_cc
+
+    span = (prep.hi - prep.lo).clamp(min=0)
+    key = prep.key.long()
+    target = key[:, None] + prep.offs.long()[None, :]
+    first = torch.searchsorted(key, target - 1)
+    last = torch.searchsorted(key, target + 1, right=True)
+    lo = prep.lo.long().repeat_interleave(tile, dim=0)
+    hi = prep.hi.long().repeat_interleave(tile, dim=0)
+    run = (torch.minimum(last, hi) - torch.maximum(first, lo)).clamp(min=0)
+    return tile * int(span.sum()), int(run[key < radius_cc.PAD_KEY].sum())
+
+
+def check_cc_sweep(torch, dev, card, model):
+    """K4 against its plain version: labels exactly equal after one sweep
+    and at the fixpoint, the kernel bit-equal across two runs, on every
+    problem of cc_problems; the kernel's and the plain version's time per
+    sweep beside the bound on the full-width forward's problem; then
+    semantic_radius_cc on the card against the CPU at 2 x 2^13 rows, through
+    the sweep and through the fallback."""
+    from seggroup_tpu_torch.ops import cuda_cc, radius_cc
+
+    radius = torch.tensor(PG_RADIUS, dtype=torch.float32, device=dev)
+    r2 = radius * radius
+    row = None
+    for name, pts, batch, valid, sem in cc_problems(torch, dev, model):
+        n = pts.shape[0]
+        prep = radius_cc._prep(pts, radius, batch, valid, sem, radius_cc.TILE,
+                               radius_cc.WINDOW)
+        if not bool(prep.use_window):
+            raise AssertionError(f"K4 {name}: a range overflows the window, the sweep does "
+                                 f"not apply")
+        s_valid = valid[prep.order.long()]
+        lab0 = torch.where(s_valid, torch.arange(n, dtype=torch.int32, device=dev), n)
+        got = radius_cc.sweep(lab0, prep, r2)
+        again = radius_cc.sweep(lab0, prep, r2)
+        want = radius_cc.sweep_plain(lab0, prep, r2)
+        before = cuda_cc.launches
+        fix = radius_cc._cc_loop(prep, r2, valid)
+        sweeps = cuda_cc.launches - before
+        fix_again = radius_cc._cc_loop(prep, r2, valid)
+        fix_plain = radius_cc._cc_loop(prep, r2, valid, sweep_fn=radius_cc.sweep_plain)
+        torch.cuda.synchronize()
+        span = (prep.hi - prep.lo).clamp(min=0)
+        real = (prep.key.reshape(-1, radius_cc.TILE) < radius_cc.PAD_KEY).any(1)
+        err = int((got.long() - want.long()).abs().max())
+        err_fix = int((fix.long() - fix_plain.long()).abs().max())
+        comps = int(torch.unique(fix[fix < n]).numel())
+        sizes = torch.bincount(fix[fix < n].long(), minlength=1)
+        line = (f"K4 cc_sweep {name}: N={n}, {int(valid.sum())} valid rows; one sweep max "
+                f"|kernel - plain| = {err} ({int((got < lab0).sum())} labels fell), at the "
+                f"fixpoint after {sweeps} sweeps {err_fix}; {comps} components, "
+                f"{int((sizes >= 50).sum())} of at least 50 points; mean true range "
+                f"{float(span[real].float().mean()) if bool(real.any()) else 0.0:.1f} rows, "
+                f"longest {int(span.max())} of {radius_cc.WINDOW}")
+        if err or err_fix:
+            raise AssertionError(line)
+        if not (torch.equal(got, again) and torch.equal(fix, fix_again)):
+            raise AssertionError(f"{line}: two runs on the same inputs differ")
+        if not bool((fix[~valid] == n).all()):
+            raise AssertionError(f"{line}: an invalid row has a label")
+        print(line + "; bit-equal across two runs", flush=True)
+        doubled = name == "bench scene, true labels, doubled with half-way offsets"
+        if row is None or doubled:
+            each = cuda_ms_each(lambda: radius_cc.sweep(lab0, prep, r2), reps=30, warmup=3)
+            ms = float(np.mean(each))
+            plain_ms = cuda_ms(lambda: radius_cc.sweep_plain(lab0, prep, r2), reps=2, warmup=1)
+            # the operations the function needs: a distance (8 f32 operations:
+            # 3 sub, 3 mul, 2 add) for each pair that can pass the key test,
+            # not for each pair of a tile's whole ranges; its bytes: each row
+            # read once (xyz, class, key, label: 24 B), one label written, the
+            # two range tables read
+            walked, needed = cc_pair_tests(torch, prep, radius_cc.TILE)
+            flops = 8 * needed
+            nbytes = n * 28 + 2 * prep.lo.numel() * 4
+            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+            bound, by = max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+            print(f"K4 cc_sweep {name}: kernel {ms:.4f} ms per sweep (mean of {len(each)} "
+                  f"launches, min {min(each):.4f}, median {float(np.median(each)):.4f}), plain "
+                  f"{plain_ms:.3f} ms, bound {bound:.5f} ms ({by}: bytes {t_bytes:.5f} ms for "
+                  f"{nbytes / 1e6:.2f} MB, operations {t_ops:.5f} ms for {needed / 1e6:.3f} M "
+                  f"pair tests within the 3-cell key runs, "
+                  f"{needed / max(int(valid.sum()), 1):.1f} per valid row; the tiles' whole "
+                  f"ranges hold {walked / 1e6:.3f} M pairs, which this kernel walks), kernel "
+                  f"{ms / bound:.1f} times its bound; on {card}", flush=True)
+            stats = {"rows": n, "valid_rows": int(valid.sum()), "sweeps_to_fixpoint": sweeps,
+                     "ms": ms, "ms_min": min(each), "ms_median": float(np.median(each)),
+                     "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                     "pair_tests_needed": needed, "pair_tests_of_whole_ranges": walked}
+            if row is None:
+                row = {"name": "cc_sweep", "route": "cuda",
+                       "source": "seggroup_tpu_torch/csrc/cc_sweep.cu",
+                       "replaces": "seggroup_tpu/ops/pallas_cc.py:131", "max_abs_err": 0,
+                       "ms": ms, "ms_min": stats["ms_min"], "ms_median": stats["ms_median"],
+                       "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                       "library_ms": None, "by_problem": {}}
+            row["by_problem"][name] = stats
+
+    # the public function, card against CPU, at a size the CPU's plain sweep
+    # takes: a 30,000-point scene's true labels cropped to 2^13 rows, doubled
+    from seggroup_tpu_torch.cli.stage2_pointgroup_common import (make_pg_batch,
+                                                                 scene_instance_tuple)
+    from seggroup_tpu_torch.data.synthetic import make_synthetic_scene
+    from seggroup_tpu_torch.models.pointgroup import PointGroup
+
+    small = scene_instance_tuple(make_synthetic_scene(seed=5, num_points=30000), {}, None, "")
+    hb = make_pg_batch([small], 2 ** 13, 256)
+    cpu = torch.device("cpu")
+    sem_c, off_c = _true_label_heads(torch, cpu, hb, 0.5)
+    prob = PointGroup.clustering_problem(sem_c, off_c, torch.from_numpy(hb.coords),
+                                         torch.from_numpy(hb.batch_ids),
+                                         torch.from_numpy(hb.valid))
+    for r, kw, note in ((0.06, {}, "the sweep"), (0.06, dict(window=32), "the fallback")):
+        on_cpu, uw_cpu = radius_cc.semantic_radius_cc(
+            prob[0], r, *prob[1:], fused_halves=True, return_use_window=True, **kw)
+        before = cuda_cc.launches
+        on_card, uw = radius_cc.semantic_radius_cc(
+            prob[0].to(dev), r, *(t.to(dev) for t in prob[1:]), fused_halves=True,
+            return_use_window=True, **kw)
+        used = cuda_cc.launches - before
+        n = on_cpu.shape[0]
+        line = (f"semantic_radius_cc card vs CPU through {note}, N={n}, radius {r}: "
+                f"{int((on_card.cpu() != on_cpu).sum())} labels differ, "
+                f"{int(torch.unique(on_cpu[on_cpu < n]).numel())} components, use_window "
+                f"{bool(uw)} / {bool(uw_cpu)}, {used} K4 launches")
+        if (not torch.equal(on_card.cpu(), on_cpu) or bool(uw) != bool(uw_cpu)
+                or bool(uw) != (note == "the sweep") or (used > 0) != bool(uw)):
+            raise AssertionError(line)
+        print(line, flush=True)
+    return row
+
+
+def check_subm_conv_pointgroup(torch, dev, card):
+    """K2 against its plain version in bf16 at every (Cin, Cout) of
+    PointGroup at m=16, on 65,536 dense sites (the U-Net's level-0
+    capacity): K = 27 over the site rulebook, and K = 1 over each row's own
+    index (the block after a concatenation); each case run twice and
+    required bit-equal; kernel and plain times beside the bound."""
+    from seggroup_tpu_torch.sparse import cuda_subm_conv
+    from seggroup_tpu_torch.sparse.conv import subm_conv_plain
+
+    m = PG_VOXEL_CAP
+    rb27 = k2_sites(torch, dev, m)
+    rb1 = torch.arange(m, dtype=torch.int32, device=dev)[:, None].contiguous()
+    g = torch.Generator(device=dev).manual_seed(2)
+    worst = 0.0
+    for (cin, cout), rb in [(c, rb27) for c in PG_PAIRS] + [(c, rb1) for c in PG_K1_PAIRS]:
+        kvol = rb.shape[1]
+        f = torch.randn(m, cin, generator=g, device=dev).to(torch.bfloat16)
+        w = (torch.randn(kvol, cin, cout, generator=g, device=dev)
+             / (kvol * cin) ** 0.5).to(torch.bfloat16)
+        got = cuda_subm_conv.subm_conv_cuda(f, w, rb)
+        again = cuda_subm_conv.subm_conv_cuda(f, w, rb)
+        want = subm_conv_plain(f, w, rb, torch.bfloat16)
+        torch.cuda.synchronize()
+        err, scale = float((got - want).abs().max()), float(want.abs().max())
+        line = (f"K2 {cuda_subm_conv.regime(cin)} PointGroup ({cin},{cout}) K={kvol}, M={m}: "
+                f"max |kernel - plain| = {err:.3e} = {err / scale:.2e} of max|plain|")
+        if err > K2_RTOL * scale or not torch.isfinite(got).all():
+            raise AssertionError(line)
+        if not torch.equal(got, again):
+            raise AssertionError(f"{line}: two runs on the same inputs differ")
+        worst = max(worst, err / scale)
+        ms = cuda_ms(lambda: cuda_subm_conv.subm_conv_cuda(f, w, rb), reps=30, warmup=3)
+        plain_ms = cuda_ms(lambda: subm_conv_plain(f, w, rb, torch.bfloat16), reps=3, warmup=1)
+        nbytes = m * cin * 2 + m * kvol * 4 + kvol * cin * cout * 2 + m * cout * 4
+        flops = 2 * int((rb < m).sum()) * cin * cout
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
+        print(f"{line}; bit-equal across two runs; kernel {ms:.4f} ms, plain {plain_ms:.3f} "
+              f"ms, bound {max(t_bytes, t_ops):.4f} ms "
+              f"({'bytes' if t_bytes >= t_ops else 'operations'}) on {card}", flush=True)
+    return worst
+
+
+def run_pointgroup_path(torch, dev, card, model):
+    """PointGroup instance-segmentation inference at full width over 4
+    bench-size scenes through the evaluation CLI's loop, on random
+    weights as the CLI runs without a checkpoint; then the clustering
+    and the ScoreNet on a scene's true labels. Returns the K2 and K4 launch
+    counts of the timed scenes."""
+    from seggroup_tpu_torch.cli.stage2_test_pointgroup import test_instance_pointgroup
+    from seggroup_tpu_torch.data.synthetic import BENCH_SCENE
+    from seggroup_tpu_torch.ops import cuda_cc
+    from seggroup_tpu_torch.sparse import cuda_subm_conv, cuda_subm_dw
+
+    scenes = [_pg_scene(i) for i in range(N_SCENES)]
+    t0 = time.perf_counter()
+    test_instance_pointgroup(model, scenes[:1], PG_POINT_CAP, PG_VOXEL_CAP)  # warm-up
+    torch.cuda.synchronize()
+    print(f"PointGroup warm-up scene: {time.perf_counter() - t0:.3f} s", flush=True)
+
+    sweeps = []  # K4 launches of each forward's clustering
+    cluster = model.cluster
+
+    def counted(*args, **kwargs):
+        before = cuda_cc.launches
+        out = cluster(*args, **kwargs)
+        sweeps.append(cuda_cc.launches - before)
+        return out
+
+    model.cluster = counted
+    try:
+        torch.cuda.reset_peak_memory_stats(dev)
+        cuda_subm_conv.launches = cuda_subm_dw.launches = cuda_cc.launches = 0
+        t0 = time.perf_counter()
+        aps, avg = test_instance_pointgroup(model, scenes, PG_POINT_CAP, PG_VOXEL_CAP)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"subm_conv": cuda_subm_conv.launches, "cc_sweep": cuda_cc.launches}
+        peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        per_forward = list(sweeps)
+        # the split, each phase fenced by a synchronisation on each side
+        phases: dict[str, float] = {}
+        log: list = []
+        t0 = time.perf_counter()
+        test_instance_pointgroup(model, scenes, PG_POINT_CAP, PG_VOXEL_CAP,
+                                 phase_seconds=phases, scene_log=log)
+        fenced = (time.perf_counter() - t0) / N_SCENES
+    finally:
+        del model.cluster
+
+    if min(per_forward) < 1:
+        raise AssertionError(f"K4 launches per forward {per_forward}: a forward took the "
+                             f"fallback, not the sweep")
+    if launches["subm_conv"] != PG_SUBM_PER_FORWARD * N_SCENES or cuda_subm_dw.launches:
+        raise AssertionError(f"K2 launched {launches['subm_conv']} times in {N_SCENES} "
+                             f"forwards, K3 {cuda_subm_dw.launches}")
+    if aps.shape != (18, 10) or not all(rec["finite"] for rec in log):
+        raise AssertionError(f"AP array {aps.shape}, scenes {log}")
+    for rec in log:
+        if not (0 < rec["points"] <= PG_POINT_CAP and rec["voxels"] > 0):
+            raise AssertionError(f"scene {rec}")
+    top = ("host batch", "voxelize", "unet", "clustering", "scorenet", "proposals to AP")
+    split = ", ".join(f"{k} {phases.get(k, 0.0) / N_SCENES:.4f} s" for k in top)
+    inner = ", ".join(f"{k} {phases.get(k, 0.0) / N_SCENES:.4f} s"
+                      for k in ("rulebooks", "subm_conv"))
+    print(f"PointGroup instance inference, m={PG_M}, point cap {PG_POINT_CAP}, voxel cap "
+          f"{PG_VOXEL_CAP}, radius {PG_RADIUS}, {N_SCENES} scenes of "
+          f"{BENCH_SCENE['num_points']} points cropped to {[rec['points'] for rec in log]}: "
+          f"{wall / N_SCENES:.4f} s/scene, {sum(rec['points'] for rec in log) / wall:.1f} "
+          f"points/s; fenced split per scene "
+          f"({fenced:.4f} s/scene): {split}; inside the U-Net and the ScoreNet: {inner}; "
+          f"per forward {launches['subm_conv'] / N_SCENES:.1f} K2 launches and K4 launches "
+          f"(sweeps) {per_forward}; voxels {[rec['voxels'] for rec in log]} (those past the "
+          f"{PG_VOXEL_CAP} rows are dropped); proposals found "
+          f"{[rec['proposals'] for rec in log]}, kept {[rec['kept'] for rec in log]}; peak "
+          f"{peak_gib:.2f} GiB; AP {avg['all_ap']:.3f} (random weights); on {card}, "
+          f"{machine_id(torch)}", flush=True)
+
+    # the same model on heads that predict the truth: real components for the
+    # clustering and real proposals for the ScoreNet
+    hb, (st, p2v, pts, batch_ids, valid) = _pg_inputs(torch, dev, scenes[0], PG_POINT_CAP,
+                                                      PG_VOXEL_CAP)
+    sem_t, off_t = _true_label_heads(torch, dev, hb, 0.5)
+    with torch.no_grad():
+        point_feats, _, _ = model.backbone(st, p2v, valid)
+        torch.cuda.synchronize()
+        before, t0 = cuda_cc.launches, time.perf_counter()
+        props = model.cluster(sem_t, off_t, pts, batch_ids, valid)
+        torch.cuda.synchronize()
+        t_cluster = time.perf_counter() - t0
+        used = cuda_cc.launches - before
+        t0 = time.perf_counter()
+        scores = model.score(point_feats, props.proposal_of_point, props.score_vox)
+        torch.cuda.synchronize()
+        t_score = time.perf_counter() - t0
+    n_prop = int(props.num_proposals)
+    in_prop = int((props.proposal_of_point < 2 * model.max_proposals_per_source).sum())
+    instances = int(np.unique(hb.instance_labels[hb.instance_labels >= 0]).size)
+    line = (f"PointGroup on true labels (offsets half-way to the centroids), scene 0: "
+            f"{instances} instances, {n_prop} proposals of at least "
+            f"{model.cluster_npoint_thre} points holding {in_prop} (source, point) pairs, "
+            f"{int(props.score_vox.num_voxels)} score voxels of {model.score_cap}; "
+            f"clustering {t_cluster:.4f} s with {used} K4 launches, ScoreNet {t_score:.4f} s; "
+            f"on {card}, {machine_id(torch)}")
+    if used < 1 or n_prop < 1 or not torch.isfinite(scores).all():
+        raise AssertionError(line)
+    print(line, flush=True)
+    return launches
+
+
+def pointgroup_card_vs_cpu(torch, dev):
+    """PointGroup (m=8, 4,096 points of a small scene in 2,048 voxel rows,
+    radius 0.25) on the card and on the CPU from the same weights, stage by
+    stage: the heads within the MinkUNet tolerance; clustering, proposals
+    and score voxelisation exactly equal at shared heads (the CPU's); the
+    scores within tolerance at the shared voxel map."""
+    from seggroup_tpu_torch.cli.stage2_pointgroup_common import scene_instance_tuple
+    from seggroup_tpu_torch.data.synthetic import make_synthetic_scene
+    from seggroup_tpu_torch.models.pointgroup import PointGroup
+
+    kw = dict(classes=8, m=8, max_proposals_per_source=32, score_cap=2048,
+              cluster_npoint_thre=20, cluster_radius=0.25, seed=4)
+    scene = ("small", *scene_instance_tuple(make_synthetic_scene(seed=7), {}, None, ""))
+    cpu = torch.device("cpu")
+    runs = []
+    for d in (dev, cpu):
+        model = PointGroup(device=d, **kw)
+        with torch.no_grad():  # spread the statistics so that no layer is the identity
+            for name, buf in model.named_buffers():
+                buf.copy_(torch.linspace(0.5, 1.5, buf.numel()) if name.endswith("var")
+                          else torch.linspace(-0.2, 0.2, buf.numel()))
+        _, args = _pg_inputs(torch, d, scene, 4096, 2048)
+        with torch.no_grad():
+            feats, sem, off = model.backbone(args[0], args[1], args[4])
+        runs.append((model, args, feats, sem, off))
+    (m_a, args_a, feats_a, sem_a, off_a), (m_b, args_b, feats_b, sem_b, off_b) = runs
+    for name, x, y in (("semantic scores", sem_a, sem_b), ("offsets", off_a, off_b)):
+        if not torch.allclose(x.cpu(), y, rtol=LOGIT_RTOL, atol=LOGIT_ATOL):
+            raise AssertionError(f"PointGroup card vs CPU {name}: max |diff| "
+                                 f"{float((x.cpu() - y).abs().max())}")
+    with torch.no_grad():
+        p_a = m_a.cluster(sem_b.to(dev), off_b.to(dev), *args_a[2:])
+        p_b = m_b.cluster(sem_b, off_b, *args_b[2:])
+    flat_a = [p_a.proposal_of_point, p_a.proposal_valid, p_a.num_proposals, p_a.voxel_coords,
+              *p_a.score_vox]
+    flat_b = [p_b.proposal_of_point, p_b.proposal_valid, p_b.num_proposals, p_b.voxel_coords,
+              *p_b.score_vox]
+    for i, (x, y) in enumerate(zip(flat_a, flat_b)):
+        if not torch.equal(x.cpu(), y):
+            raise AssertionError(f"PointGroup card vs CPU clustering: field {i} differs at "
+                                 f"{int((x.cpu() != y).sum())} entries")
+    with torch.no_grad():
+        s_a = m_a.score(feats_a, p_a.proposal_of_point, p_a.score_vox).cpu()
+        s_b = m_b.score(feats_b, p_b.proposal_of_point, p_b.score_vox)
+    if not torch.allclose(s_a, s_b, rtol=LOGIT_RTOL, atol=LOGIT_ATOL):
+        raise AssertionError(f"PointGroup card vs CPU scores: max |diff| "
+                             f"{float((s_a - s_b).abs().max())}")
+    if int(p_b.num_proposals) < 1:
+        raise AssertionError("PointGroup card vs CPU: the small scene gave no proposal")
+    print(f"card vs CPU, PointGroup m=8 at N=4096: heads max |card - CPU| = "
+          f"{float((sem_a.cpu() - sem_b).abs().max()):.3e} (scores), "
+          f"{float((off_a.cpu() - off_b).abs().max()):.3e} (offsets); at shared heads "
+          f"{int(p_b.num_proposals)} proposals, proposal maps, cells and all "
+          f"{int(p_b.score_vox.num_voxels)} score voxels equal; proposal scores max |card - "
+          f"CPU| = {float((s_a - s_b).abs().max()):.3e}", flush=True)
+
+
 def build_all() -> None:
     """Build every kernel, one nvcc per source, all started together."""
-    from seggroup_tpu_torch.ops import cuda_fps
+    from seggroup_tpu_torch.ops import cuda_cc, cuda_fps
     from seggroup_tpu_torch.sparse import cuda_subm_conv, cuda_subm_dw
 
     def timed(build):
@@ -912,7 +1384,7 @@ def build_all() -> None:
         lib, log = build()
         return lib, log, time.perf_counter() - t0
 
-    mods = (cuda_fps, cuda_subm_conv, cuda_subm_dw)
+    mods = (cuda_fps, cuda_subm_conv, cuda_subm_dw, cuda_cc)
     with ThreadPoolExecutor(max_workers=len(mods)) as pool:
         jobs = [pool.submit(timed, mod.build) for mod in mods]
         for job in jobs:
@@ -936,7 +1408,7 @@ def main() -> int:
     card = card_description()
     print(card, flush=True)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
-          f"{torch.cuda.get_device_name(0)}", flush=True)
+          f"{torch.cuda.get_device_name(0)}, {machine_id(torch)}", flush=True)
 
     build_all()
 
@@ -952,14 +1424,24 @@ def main() -> int:
     train_card_vs_cpu(torch, dev)
     overfit_check(torch, dev, card)
 
+    from seggroup_tpu_torch.cli.stage2_test_pointgroup import make_eval_model
+
+    pg_model = make_eval_model(PG_M, PG_VOXEL_CAP, dev)
+    k4 = check_cc_sweep(torch, dev, card, pg_model)
+    check_subm_conv_pointgroup(torch, dev, card)
+    pointgroup = run_pointgroup_path(torch, dev, card, pg_model)
+    pointgroup_card_vs_cpu(torch, dev)
+
     k1["launches"] = launches["masked_fps"]
-    # the training path runs both kernels; K2's count on the inference path
-    # stands beside it
+    # the training path runs both K2 and K3; K2's counts on the inference
+    # paths stand beside it
     k2["launches"] = train["subm_conv"]
     k2["launches_by_path"] = {"stage2_semantic_inference": inference_k2,
-                              "stage2_training": train["subm_conv"]}
+                              "stage2_training": train["subm_conv"],
+                              "pointgroup_inference": pointgroup["subm_conv"]}
     k3["launches"] = train["subm_dw"]
-    print(json.dumps({"kernels": [k1, k2, k3]}), flush=True)
+    k4["launches"] = pointgroup["cc_sweep"]
+    print(json.dumps({"kernels": [k1, k2, k3, k4]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

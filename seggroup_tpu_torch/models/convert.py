@@ -1,5 +1,6 @@
 """Weights of the JAX models -> state_dicts of the port's: SegGroupGNN
-(`params_from_flax`) and MinkUNet (`minkunet_params_from_flax`).
+(`params_from_flax`), MinkUNet (`minkunet_params_from_flax`) and PointGroup
+(`pointgroup_params_from_flax`).
 
 The JAX variables are `{"params": ..., "batch_stats": ...}` trees of numpy
 arrays (`jax.tree.map(np.asarray, variables)`). Flax `Dense` kernels are
@@ -77,3 +78,15 @@ def minkunet_params_from_flax(variables: Mapping) -> dict[str, torch.Tensor]:
     for path, x in _flatten(variables.get("batch_stats", {})):
         out[".".join(path)] = torch.from_numpy(np.array(x, dtype=np.float32))
     return out
+
+
+def pointgroup_params_from_flax(variables: Mapping) -> dict[str, torch.Tensor]:
+    """state_dict of models.pointgroup.PointGroup from the flax PointGroup's
+    `{"params", "batch_stats"}` trees. The port keeps the flax names, the
+    recursive `unet/u/u/...` and `score_unet/u` among them, so the rule is
+    MinkUNet's: conv kernels ((K, Cin, Cout) `kernel`, `conv_kernel`,
+    `deconv_kernel`) as they are, the four Dense heads' 2-D kernels
+    transposed into `.weight`, BatchNorm parameters and statistics as they
+    are. A tree initialised without clustering has no ScoreNet entries; the
+    caller then loads with `strict=False`."""
+    return minkunet_params_from_flax(variables)

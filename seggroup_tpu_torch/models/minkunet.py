@@ -40,6 +40,24 @@ def _conv_kernel(k: int, cin: int, cout: int) -> nn.Parameter:
     return nn.Parameter(torch.empty(k, cin, cout))
 
 
+def variance_scaling_init_(module: nn.Module, seed: int) -> None:
+    """Draw every conv kernel and Linear weight of `module` from `seed` as
+    flax's variance_scaling(1.0, "fan_in", "truncated_normal") does (a
+    normal of variance 1 / fan-in cut at two standard deviations); vectors
+    (biases, BatchNorm parameters) are left as they are."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for w in module.parameters():
+            if w.ndim == 3:  # (K, Cin, Cout): fan-in K * Cin
+                fan_in = w.shape[0] * w.shape[1]
+            elif w.ndim == 2:  # nn.Linear (out, in)
+                fan_in = w.shape[1]
+            else:
+                continue
+            std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+            nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std, generator=gen)
+
+
 class SparseBatchNorm(nn.Module):
     """BatchNorm over valid voxels, `scale`/`bias` map, running `mean`/`var`
     (the flax names). Training normalises by the masked batch mean and the
@@ -182,17 +200,8 @@ class MinkUNet(nn.Module):
         self.to(dev)
 
     def _init_weights(self, seed: int) -> None:
-        gen = torch.Generator().manual_seed(seed)
+        variance_scaling_init_(self, seed)
         with torch.no_grad():
-            for w in self.parameters():
-                if w.ndim == 3:  # (K, Cin, Cout): fan-in K * Cin
-                    fan_in = w.shape[0] * w.shape[1]
-                elif w.ndim == 2:  # nn.Linear (out, in)
-                    fan_in = w.shape[1]
-                else:
-                    continue
-                std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-                nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std, generator=gen)
             self.final.bias.zero_()
 
     @property

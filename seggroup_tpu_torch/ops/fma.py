@@ -27,3 +27,14 @@ def dot_fma(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     for i in range(1, a.shape[-1]):
         acc = fma32(a[..., i], b[..., i], acc)
     return acc
+
+
+def sqdist_fma(dx: torch.Tensor, dy: torch.Tensor, dz: torch.Tensor) -> torch.Tensor:
+    """The squared length of (dx, dy, dz) as jitted XLA:CPU forms the
+    accumulation `d = 0; d = d + dx*dx; d = d + dy*dy; d = d + dz*dz`
+    (pallas_cc._sweep_kernel in interpret mode, knn.ball_query_pair*): the
+    zero is folded away and LLVM contracts the two adds into
+    fma(dz, dz, fma(dx, dx, dy*dy)). Measured against `_sweep` on pairs at
+    the radius: this form decides every edge as the reference does, the
+    plain float32 sum 70 of 120."""
+    return fma32(dz, dz, fma32(dx, dx, dy * dy))

@@ -6,16 +6,23 @@
     (cluster id, Morton code) so each cluster is a contiguous block, and an
     exact top-k over a fixed candidate window per row block.
 
+  * fixed-radius neighbour lists between two point sets over a uniform
+    grid of radius-sized cells -> `ball_query_pair` (27-cell stencil,
+    per-cell bucket caps), `ball_query_pair_windowed` (queries in cell-key
+    order, one contiguous support window per tile of queries) and
+    `ball_query_pair_fast` (the windowed form, falling back to the bucket
+    form when a window or the int32 key space overflows).
+
 Every distance is formed in XLA's CPU order (ops/fma.py) and every top-k
 orders equal distances by ascending index, as `lax.top_k` does, so indices
 equal the JAX ones exactly. The approximate top-k (`approx=True`) and the
-ball queries are not ported."""
+single-set `ball_query` are not ported."""
 
 from __future__ import annotations
 
 import torch
 
-from seggroup_tpu_torch.ops.fma import dot_fma
+from seggroup_tpu_torch.ops.fma import dot_fma, sqdist_fma
 from seggroup_tpu_torch.ops.segment_ops import invert_permutation
 
 __all__ = [
@@ -24,6 +31,10 @@ __all__ = [
     "masked_knn",
     "cluster_knn",
     "morton3d",
+    "grid_hash",
+    "ball_query_pair",
+    "ball_query_pair_windowed",
+    "ball_query_pair_fast",
 ]
 
 
@@ -180,3 +191,216 @@ def cluster_knn(
     # map sorted positions -> original ids, and rows back to original order
     knn_orig = order[knn_sorted]
     return knn_orig[invert_permutation(order).long()].to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# uniform-grid hashing + fixed-radius neighbour lists
+# (seggroup_tpu/ops/knn.py:346-617)
+# ---------------------------------------------------------------------------
+
+INT32_MAX = 2 ** 31 - 1
+
+
+def grid_hash(coords: torch.Tensor, cell_size) -> torch.Tensor:
+    """Quantize (N, 3) coords to int32 cell coords (a true division, as XLA
+    divides). The caller offsets to >= 0."""
+    return torch.floor(coords / cell_size).to(torch.int32)
+
+
+def _cell_key(cells: torch.Tensor, dims: torch.Tensor) -> torch.Tensor:
+    """Row-major linear int32 key for 3-D integer cells (cells >= 0)."""
+    return (cells[..., 0] * dims[1] + cells[..., 1]) * dims[2] + cells[..., 2]
+
+
+def _masked_min(x: torch.Tensor, valid: torch.Tensor, fill: int) -> torch.Tensor:
+    return torch.where(valid[:, None], x, fill).min(dim=0).values
+
+
+def _masked_max(x: torch.Tensor, valid: torch.Tensor, fill: int) -> torch.Tensor:
+    return torch.where(valid[:, None], x, fill).max(dim=0).values
+
+
+def _pair_grid(support, support_valid, queries, query_valid, radius, query_extent: bool):
+    """Shifted cells of both sets and the grid dims (3,) int32; the dims
+    cover the queries too with `query_extent` (the windowed form)."""
+    s_cells = grid_hash(support, radius)
+    q_cells = grid_hash(queries, radius)
+    cmin = torch.minimum(_masked_min(s_cells, support_valid, 2 ** 30),
+                         _masked_min(q_cells, query_valid, 2 ** 30))
+    s_cells = s_cells - cmin + 1
+    q_cells = q_cells - cmin + 1
+    cmax = _masked_max(s_cells, support_valid, 0)
+    if query_extent:
+        cmax = torch.maximum(cmax, _masked_max(q_cells, query_valid, 0))
+    return s_cells, q_cells, cmax + 2
+
+
+# query rows per batch of ball_query_pair's (rows, 27 * bucket_cap) candidate
+# block, and (tile, window) elements per batch of the windowed form
+_BUCKET_ROWS = 1 << 15
+_WINDOW_ELEMS = 1 << 25
+
+
+def ball_query_pair(support: torch.Tensor, support_batch: torch.Tensor,
+                    support_valid: torch.Tensor, queries: torch.Tensor,
+                    query_batch: torch.Tensor, query_valid: torch.Tensor,
+                    radius, max_neighbors: int = 64, bucket_cap: int = 16
+                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Fixed-radius neighbours of `queries` among `support`, same batch id
+    only. Candidates are the first `bucket_cap` rows of each of the 27
+    stencil cells; the nearest `max_neighbors` in-radius ones are kept,
+    nearest first. Returns (neighbors (Nq, K) int32 into support, Ns for
+    empty slots; counts (Nq,) int32; overflow (Nq,) bool: a cell held more
+    than `bucket_cap` rows or the ball more than K)."""
+    ns, nq, k = support.shape[0], queries.shape[0], max_neighbors
+    dev = support.device
+    radius = torch.as_tensor(radius, dtype=torch.float32, device=dev)
+    s_cells, q_cells, dims = _pair_grid(support, support_valid, queries, query_valid,
+                                        radius, False)
+    span = dims[0] * dims[1] * dims[2]
+    s_key = _cell_key(s_cells, dims) + support_batch.to(torch.int32) * span
+    s_key = torch.where(support_valid, s_key, INT32_MAX)
+    order = torch.argsort(s_key, stable=True)
+    s_key_sorted = s_key[order]
+
+    r = torch.arange(-1, 2, dtype=torch.int32, device=dev)
+    offsets = torch.stack(torch.meshgrid(r, r, r, indexing="ij"), -1).reshape(27, 3)
+    base_key = _cell_key(q_cells, dims) + query_batch.to(torch.int32) * span
+    off_key = (offsets[:, 0] * dims[1] + offsets[:, 1]) * dims[2] + offsets[:, 2]
+    slot = torch.arange(bucket_cap, device=dev)
+    r2 = radius * radius
+    big = 1e30
+
+    nbrs = torch.empty((nq, k), dtype=torch.int32, device=dev)
+    counts = torch.empty(nq, dtype=torch.int32, device=dev)
+    overflow = torch.empty(nq, dtype=torch.bool, device=dev)
+    for q0 in range(0, nq, _BUCKET_ROWS):
+        sl = slice(q0, q0 + _BUCKET_ROWS)
+        qv = query_valid[sl]
+        nb_key = base_key[sl, None] + off_key[None, :]  # (B, 27)
+        start = torch.searchsorted(s_key_sorted, nb_key)
+        stop = torch.searchsorted(s_key_sorted, nb_key, right=True)
+        # rows past bucket_cap are never gathered and may be in the ball
+        bucket_overflow = ((stop - start) > bucket_cap).any(dim=1) & qv
+        b = nb_key.shape[0]
+        slots_raw = (start[:, :, None] + slot).reshape(b, 27 * bucket_cap)
+        # a past-the-end slot must not alias row ns-1
+        slots = torch.clamp(slots_raw, max=ns - 1)
+        nb_key_flat = nb_key[:, :, None].expand(b, 27, bucket_cap).reshape(b, -1)
+        cand_ok = (s_key_sorted[slots] == nb_key_flat) & (slots_raw < ns)
+        cand_idx = order[slots]
+        q = queries[sl]
+        d = sqdist_fma(*(support[:, c][cand_idx] - q[:, c, None] for c in range(3)))
+        in_ball = cand_ok & (d <= r2) & qv[:, None] & support_valid[cand_idx]
+        d = torch.where(in_ball, d, big)
+        vals, sel = _smallest_k(d, k)
+        got = vals < big
+        picked = torch.gather(cand_idx, 1, sel.long()).to(torch.int32)
+        nbrs[sl] = torch.where(got, picked, ns)
+        counts[sl] = got.sum(dim=1, dtype=torch.int32)
+        overflow[sl] = (in_ball.sum(dim=1) > k) | bucket_overflow
+    return nbrs, counts, overflow
+
+
+def ball_query_pair_windowed(support: torch.Tensor, support_batch: torch.Tensor,
+                             support_valid: torch.Tensor, queries: torch.Tensor,
+                             query_batch: torch.Tensor, query_valid: torch.Tensor,
+                             radius, max_neighbors: int = 32, tile: int = 256,
+                             window: int = 4096
+                             ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """`ball_query_pair` without per-cell caps: queries go in cell-key
+    order, so the whole 27-cell stencil of a tile of `tile` queries lies in
+    one contiguous range of the key-sorted support, of which `window` rows
+    are tested. Exact while no range exceeds the window.
+
+    Returns (neighbors, counts, overflow, window_overflow_any); the last is
+    a () bool, true when some tile's range exceeded `window` or the key
+    space exceeds int32: the caller must then take `ball_query_pair`."""
+    ns, nq, k = support.shape[0], queries.shape[0], max_neighbors
+    dev = support.device
+    radius = torch.as_tensor(radius, dtype=torch.float32, device=dev)
+    s_cells, q_cells, dims = _pair_grid(support, support_valid, queries, query_valid,
+                                        radius, True)
+    span = dims[0] * dims[1] * dims[2]
+    # stencil key extremes: off_key(dx, dy, dz) = (dx * d1 + dy) * d2 + dz
+    off_max = (dims[1] + 1) * dims[2] + 1
+    sb32, qb32 = support_batch.to(torch.int32), query_batch.to(torch.int32)
+    num_batches = torch.maximum(torch.where(support_valid, sb32, 0).max(),
+                                torch.where(query_valid, qb32, 0).max()) + 1
+    dimsf = dims.to(torch.float32)
+    prodf = dimsf[0] * dimsf[1] * dimsf[2] * num_batches.to(torch.float32)
+    key_space_overflow = prodf >= 2.0 ** 31
+
+    s_key = torch.where(support_valid, _cell_key(s_cells, dims) + sb32 * span, INT32_MAX)
+    q_key = torch.where(query_valid, _cell_key(q_cells, dims) + qb32 * span, INT32_MAX)
+
+    order_s = torch.argsort(s_key, stable=True)
+    sk = s_key[order_s]
+    # sorted, window-padded support (pad rows: key MAX, far coords)
+    sxyz = torch.cat([support[order_s], support.new_full((window, 3), 3e38)])
+    sb = torch.cat([sb32[order_s], sb32.new_full((window,), -1)])
+    skp = torch.cat([sk, sk.new_full((window,), INT32_MAX)])
+    ord_pad = torch.cat([order_s.to(torch.int32),
+                         torch.full((window,), ns, dtype=torch.int32, device=dev)])
+
+    order_q = torch.argsort(q_key, stable=True)
+    n_tiles = -(-nq // tile)
+    qpad = n_tiles * tile - nq
+    qk = torch.cat([q_key[order_q], q_key.new_full((qpad,), INT32_MAX)])
+    qxyz = torch.cat([queries[order_q], queries.new_zeros((qpad, 3))])
+    qb = torch.cat([qb32[order_q], qb32.new_full((qpad,), -2)])
+    qv = torch.cat([query_valid[order_q], query_valid.new_zeros((qpad,))])
+
+    qk_t = qk.reshape(n_tiles, tile)
+    real = qk_t != INT32_MAX
+    lo_key = qk_t[:, 0] - off_max  # a sorted tile: the first key is the least
+    hi_key = torch.where(real, qk_t, -(2 ** 30)).max(dim=1).values + off_max
+    w0 = torch.searchsorted(sk, lo_key)
+    w_end = torch.searchsorted(sk, hi_key, right=True)
+    ovf_t = (w_end - w0) > window
+
+    r2 = radius * radius
+    big = 1e30
+    cols = torch.arange(window, device=dev)
+    nbrs = torch.empty((n_tiles, tile, k), dtype=torch.int32, device=dev)
+    counts = torch.empty((n_tiles, tile), dtype=torch.int32, device=dev)
+    over = torch.empty((n_tiles, tile), dtype=torch.bool, device=dev)
+    per_batch = max(1, _WINDOW_ELEMS // (tile * window))
+    for t0 in range(0, n_tiles, per_batch):
+        ts = slice(t0, t0 + per_batch)
+        win = w0[ts, None] + cols  # (T, window) rows of the padded support
+        rows = slice(t0 * tile, min(t0 + per_batch, n_tiles) * tile)
+        q = qxyz[rows].reshape(-1, tile, 3)
+        wx = sxyz[win]
+        # per-axis differences, the distance of ball_query_pair
+        d = sqdist_fma(*(q[:, :, None, c] - wx[:, None, :, c] for c in range(3)))
+        qv_t = qv[rows].reshape(-1, tile)
+        ok = ((skp[win] != INT32_MAX)[:, None, :]
+              & (qb[rows].reshape(-1, tile)[:, :, None] == sb[win][:, None, :])
+              & qv_t[:, :, None] & (d <= r2))
+        d = torch.where(ok, d, big)
+        neg_d, sel = _iter_min_topk(d, k)
+        got = neg_d > -big
+        orig = torch.gather(ord_pad[win][:, None, :].expand(-1, tile, -1), 2, sel.long())
+        nbrs[ts] = torch.where(got, orig, ns)
+        counts[ts] = got.sum(dim=2, dtype=torch.int32)
+        over[ts] = ((ok.sum(dim=2) > k) | ovf_t[ts, None]) & qv_t
+    # rows are in sorted-query order (pad rows last): restore the original
+    inv = invert_permutation(order_q).long()
+    return (nbrs.reshape(-1, k)[:nq][inv], counts.reshape(-1)[:nq][inv],
+            over.reshape(-1)[:nq][inv], ovf_t.any() | key_space_overflow)
+
+
+def ball_query_pair_fast(support, support_batch, support_valid, queries, query_batch,
+                         query_valid, radius, max_neighbors: int = 32,
+                         bucket_cap: int = 16, tile: int = 256, window: int = 4096):
+    """`ball_query_pair` through the windowed form; the bucket form when a
+    window or the key space overflowed (one flag read from the device)."""
+    nbrs, counts, over, any_ovf = ball_query_pair_windowed(
+        support, support_batch, support_valid, queries, query_batch, query_valid, radius,
+        max_neighbors=max_neighbors, tile=tile, window=window)
+    if bool(any_ovf):
+        return ball_query_pair(support, support_batch, support_valid, queries, query_batch,
+                               query_valid, radius, max_neighbors=max_neighbors,
+                               bucket_cap=bucket_cap)
+    return nbrs, counts, over

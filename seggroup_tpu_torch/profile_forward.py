@@ -1,7 +1,8 @@
 """Profile one forward, or one train step, of a main path at the bench size
 on the card.
 
-    python -m seggroup_tpu_torch.profile_forward [--path stage1|stage2|train] [--seed 0] [--top 15]
+    python -m seggroup_tpu_torch.profile_forward [--path stage1|stage2|train|pointgroup]
+        [--seed 0] [--top 15]
 
 stage1: SegGroupGNN ins_infer on a bench scene (150,528 points).
 stage2: Res16UNet34C on a bench scene voxelised at 2 cm into 2^17 voxels
@@ -10,6 +11,10 @@ train: one Res16UNet34C train step (cli/stage2_train_minkunet.train_step:
 forward with BatchNorm batch statistics, backward through K2 and K3, SGD
 lr 0.1 PolyLR) on an augmented batch of bench scenes at 2^17 voxels, as the
 training driver builds it at its defaults (batch size 8).
+pointgroup: one PointGroup forward with clustering at the evaluation
+CLI's defaults (m=16, 2^17 points, 2^16 voxels, radius 0.03; random
+weights from the seed) on a bench scene, its device time grouped into K2,
+K4, sorts and searches, reductions, elementwise kernels and the rest.
 
 Prints the wall seconds with and without the profiler, the summed device
 kernel time, the device's busy share (kernel time over the wall time
@@ -27,6 +32,7 @@ import argparse
 import json
 import time
 
+import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
@@ -93,6 +99,35 @@ def _train(seed: int, dev):
             forward_alone)
 
 
+def _pointgroup(seed: int, dev):
+    from seggroup_tpu_torch.cli.stage2_pointgroup_common import (make_pg_batch,
+                                                                 scene_instance_tuple)
+    from seggroup_tpu_torch.cli.stage2_test_pointgroup import make_eval_model
+    from seggroup_tpu_torch.ops.voxelize import voxel_gather_mean, voxelize
+    from seggroup_tpu_torch.sparse.tensor import SparseTensor
+
+    point_cap, voxel_cap = 2 ** 17, 2 ** 16
+    scene = scene_instance_tuple(make_synthetic_scene(seed=seed, **BENCH_SCENE), {}, None, "")
+    hb = make_pg_batch([scene], point_cap, 256)
+    ic = np.floor(hb.coords / 0.02).astype(np.int32)
+    ic -= ic.min(0)
+    pts, batch_ids, valid = (torch.from_numpy(x).to(dev)
+                             for x in (hb.coords, hb.batch_ids, hb.valid))
+    vm = voxelize(torch.from_numpy(ic).to(dev), batch_ids, valid, voxel_cap)
+    feats = torch.cat([torch.from_numpy(hb.feats).to(dev), pts], dim=1)
+    st = SparseTensor(vm.voxel_coords, voxel_gather_mean(feats, vm), vm.voxel_valid,
+                      vm.num_voxels)
+    model = make_eval_model(16, voxel_cap, dev, seed=seed)
+
+    def forward():
+        with torch.no_grad():
+            return model(st, vm.point2voxel, pts, batch_ids, valid, do_clustering=True)
+
+    return (forward, f"PointGroup forward with clustering, {int(hb.valid.sum())} points, "
+            f"{min(int(vm.num_voxels), voxel_cap)} voxel rows of {int(vm.num_voxels)} voxels",
+            None)
+
+
 # kernel-name fragments of each group of the train step's device time
 K2_KERNEL = "subm_gather_gemm"
 GROUPS = (("K2 subm_conv", (K2_KERNEL,)),
@@ -101,15 +136,24 @@ GROUPS = (("K2 subm_conv", (K2_KERNEL,)),
           ("sum reductions (BatchNorm, loss)", ("reduce_kernel",)),
           ("index backward (up-conv gathers)", ("indexing_backward",)),
           ("rulebook sorts and searches", ("sort", "radix", "search", "bucketize")))
+# ... and of the PointGroup forward's
+GROUPS_POINTGROUP = (("K2 subm_conv", (K2_KERNEL,)),
+                     ("K4 cc_sweep", ("cc_sweep_kernel",)),
+                     ("GEMMs", ("gemm", "cutlass", "sm90_xmma", "cublas", "splitK")),
+                     ("sorts and searches", ("sort", "radix", "search", "bucketize")),
+                     ("reductions and scatters", ("reduce_kernel", "scatter", "index_put",
+                                                  "indexFuncLargeIndex", "scan")),
+                     ("elementwise", ("elementwise", "CatArrayBatchedCopy", "index_elementwise",
+                                      "gather")))
 
 
 def _kernels(prof):
     return [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
-def _group(name: str) -> str:
+def _group(name: str, groups=GROUPS) -> str:
     low = name.lower()
-    for group, keys in GROUPS:
+    for group, keys in groups:
         if any(k.lower() in low for k in keys):
             return group
     return "rest"
@@ -125,15 +169,17 @@ def _seconds(forward) -> float:
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--path", choices=["stage1", "stage2", "train"], default="stage1")
+    ap.add_argument("--path", choices=["stage1", "stage2", "train", "pointgroup"],
+                    default="stage1")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--top", type=int, default=15)
     args = ap.parse_args(argv)
 
     dev = resolve_device("cuda")
     card = card_description()
-    forward, what, forward_alone = {"stage1": _stage1, "stage2": _stage2,
-                                    "train": _train}[args.path](args.seed, dev)
+    forward, what, forward_alone = {"stage1": _stage1, "stage2": _stage2, "train": _train,
+                                    "pointgroup": _pointgroup}[args.path](args.seed, dev)
+    group_keys = GROUPS_POINTGROUP if args.path == "pointgroup" else GROUPS
     _seconds(forward)  # warm-up
     plain_s = _seconds(forward)
 
@@ -157,7 +203,7 @@ def main(argv=None) -> None:
                     "count": e.count})
     groups: dict[str, list] = {}
     for e in kernels:
-        g = groups.setdefault(_group(e.key), [0.0, 0])
+        g = groups.setdefault(_group(e.key, group_keys), [0.0, 0])
         g[0] += e.self_device_time_total / 1e3
         g[1] += e.count
     for name, (ms, count) in sorted(groups.items(), key=lambda kv: -kv[1][0]):

@@ -27,7 +27,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from seggroup_tpu_torch.ops.segment_ops import invert_permutation, segment_sum
+from seggroup_tpu_torch.ops.segment_ops import invert_permutation, lexsort, segment_sum
 from seggroup_tpu_torch.sparse import cuda_subm_conv, cuda_subm_dw
 from seggroup_tpu_torch.sparse.hashing import (INT32_MAX, lookup, lower_bound,
                                                pack_keys, sort_coords)
@@ -286,14 +286,6 @@ def subm_conv(st: SparseTensor, weights: torch.Tensor, rulebook: torch.Tensor,
 # --- stride-2 down / up -----------------------------------------------------
 
 
-def _lexsort(keys: list[torch.Tensor]) -> torch.Tensor:
-    """Stable lexsort as numpy/jnp order it: the LAST key is the primary."""
-    order = torch.arange(keys[0].shape[0], device=keys[0].device)
-    for k in keys:
-        order = order[torch.argsort(k[order], stable=True)]
-    return order
-
-
 def downsample_coords(st: SparseTensor, cap_out: int):
     """Unique coords // 2 (stride-2 output sites) + the per-input output row
     and kernel index. Returns (coords_out (cap_out, 4), valid_out, num_out,
@@ -304,7 +296,7 @@ def downsample_coords(st: SparseTensor, cap_out: int):
     delta = c[:, 1] % 2 * 4 + c[:, 2] % 2 * 2 + c[:, 3] % 2  # in {0..7}
 
     invalid = (~st.valid).to(torch.int32)
-    order = _lexsort([half[:, j] for j in range(half.shape[1] - 1, -1, -1)] + [invalid])
+    order = lexsort([half[:, j] for j in range(half.shape[1] - 1, -1, -1)] + [invalid])
     s_half = half[order]
     s_ok = st.valid[order]
     prev_same = torch.all(s_half[1:] == s_half[:-1], dim=1)

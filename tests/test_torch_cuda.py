@@ -7,7 +7,7 @@ import numpy as np
 import pytest
 import torch
 
-from seggroup_tpu_torch.ops import cuda_fps
+from seggroup_tpu_torch.ops import cuda_cc, cuda_fps, radius_cc
 from seggroup_tpu_torch.ops.fps import masked_fps, masked_fps_plain
 from seggroup_tpu_torch.sparse import cuda_subm_conv, cuda_subm_dw
 from seggroup_tpu_torch.sparse.conv import subm_conv_plain, subm_dw_plain
@@ -143,3 +143,74 @@ def test_subm_conv_backward_on_card_matches_cpu():
     for (a, b), name in zip(zip(*grads), ("dfeats", "dW")):
         assert float((a - b).abs().max()) <= 1e-4 * float(a.abs().max()), name
     assert (grads[1][0][m - 50:] == 0).all()
+
+
+def _cc_case(n_cap, n, seed, blobs=12, batches=2, spread=4.0):
+    rng = np.random.default_rng(seed)
+    coords = np.zeros((n_cap, 3), np.float32)
+    centers = rng.uniform(-spread, spread, (blobs, 3))
+    which = rng.integers(0, blobs, n)
+    coords[:n] = centers[which] + rng.normal(0, 0.05, (n, 3))
+    batch = np.zeros(n_cap, np.int32)
+    batch[:n] = rng.integers(0, batches, blobs)[which]
+    sem = np.zeros(n_cap, np.int32)
+    sem[:n] = rng.integers(2, 8, blobs)[which]
+    valid = np.zeros(n_cap, bool)
+    valid[:n] = True
+    return tuple(torch.from_numpy(x) for x in (coords, batch, valid, sem))
+
+
+@pytest.mark.parametrize("n_cap,n,radius,tile", [
+    (2048, 1500, 0.12, 256),     # the CPU tests' scene
+    (16384, 16000, 0.05, 256),   # 64 tiles, ranges over several chunks
+    (16384, 1000, 0.12, 256),    # valid rows end inside the fourth tile
+    (4096, 0, 0.12, 256),        # no valid row
+    (8192, 8000, 0.05, 128),     # another tile size
+])
+def test_cc_sweep_kernel_matches_plain(n_cap, n, radius, tile):
+    """One sweep and the fixpoint: K4's labels equal the plain version's,
+    and two runs of the kernel give the same bits."""
+    dev = _card()
+    coords, batch, valid, sem = (x.to(dev) for x in _cc_case(n_cap, n, seed=n))
+    r = torch.tensor(radius, dtype=torch.float32, device=dev)
+    prep = radius_cc._prep(coords, r, batch, valid, sem, tile, 1024)
+    assert bool(prep.use_window)
+    lab = torch.where(valid[prep.order.long()],
+                      torch.arange(n_cap, dtype=torch.int32, device=dev), n_cap)
+    before = cuda_cc.launches
+    got = radius_cc.sweep(lab, prep, r * r, tile)
+    assert cuda_cc.launches == before + 1
+    want = radius_cc.sweep_plain(lab, prep, r * r, tile)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    assert torch.equal(got, radius_cc.sweep(lab, prep, r * r, tile))
+    fix = radius_cc._cc_loop(prep, r * r, valid, tile=tile)
+    fix_plain = radius_cc._cc_loop(prep, r * r, valid, tile=tile,
+                                   sweep_fn=radius_cc.sweep_plain)
+    assert torch.equal(fix, fix_plain) and bool((fix[~valid] == n_cap).all())
+
+
+def test_semantic_radius_cc_on_card_matches_cpu():
+    dev = _card()
+    case = _cc_case(4096, 3500, seed=3)
+    on_cpu = radius_cc.semantic_radius_cc(case[0], 0.12, *case[1:])
+    before = cuda_cc.launches
+    on_card = radius_cc.semantic_radius_cc(case[0].to(dev), 0.12,
+                                           *(x.to(dev) for x in case[1:]))
+    assert cuda_cc.launches > before
+    assert torch.equal(on_card.cpu(), on_cpu)
+
+
+def test_cc_sweep_kernel_refuses_what_it_cannot_launch():
+    dev = _card()
+    coords, batch, valid, sem = (x.to(dev) for x in _cc_case(2048, 1500, seed=1))
+    r = torch.tensor(0.12, device=dev)
+    prep = radius_cc._prep(coords, r, batch, valid, sem, 256, 1024)
+    lab = torch.arange(2048, dtype=torch.int32, device=dev)
+    args = (prep.xyz, prep.sem, prep.key, prep.lo, prep.hi, prep.offs, r * r)
+    with pytest.raises(ValueError):
+        cuda_cc.cc_sweep_cuda(lab.long(), *args, 256)  # int64 labels
+    with pytest.raises(ValueError):
+        cuda_cc.cc_sweep_cuda(lab, *args, 100)  # a tile that is no multiple of 32
+    with pytest.raises(ValueError):
+        cuda_cc.cc_sweep_cuda(lab.cpu(), *args, 256)  # a CPU tensor

@@ -27,6 +27,11 @@ def test_import_leaves_jax_out():
         "import seggroup_tpu_torch.utils.prefetch, seggroup_tpu_torch.utils.tb\n"
         "import seggroup_tpu_torch.utils.logging, seggroup_tpu_torch.cli.stage1_common\n"
         "import seggroup_tpu_torch.profile_forward\n"
+        "import seggroup_tpu_torch.ops.cc, seggroup_tpu_torch.ops.radius_cc\n"
+        "import seggroup_tpu_torch.ops.cuda_cc, seggroup_tpu_torch.ops.voxelize\n"
+        "import seggroup_tpu_torch.models.pointgroup, seggroup_tpu_torch.eval.instance_ap\n"
+        "import seggroup_tpu_torch.cli.stage2_pointgroup_common\n"
+        "import seggroup_tpu_torch.cli.stage2_test_pointgroup\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert not bad, bad\n"
     )
@@ -100,3 +105,21 @@ def test_training_driver_defaults_to_the_card(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         main(["--synthetic", "2", "--max_iter", "1"])
     assert not (tmp_path / "checkpoints").exists()
+
+
+def test_pointgroup_entry_points_default_to_the_card(tmp_path, monkeypatch):
+    """The PointGroup CLI without --device, and PointGroup without
+    device=, run on CUDA and raise where there is none."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    from seggroup_tpu_torch.cli.stage2_test_pointgroup import main, make_eval_model
+    from seggroup_tpu_torch.models.pointgroup import PointGroup
+
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["--synthetic", "1"])
+    assert not (tmp_path / "checkpoints").exists()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        PointGroup(m=8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_eval_model(8, 2048, "cuda")
