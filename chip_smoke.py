@@ -556,10 +556,11 @@ def check_subm_dw(torch, dev, card, bench):
     """K3 against its plain version in bf16 at every (Cin, Cout) of
     Res16UNet34C, on the 131,072 dense sites, plus rows with no neighbour,
     a ragged M, and a bench scene's level-0 rulebook (about 3.8 present
-    neighbours per row, so whole 64-row chunks lack an offset) and level-3
-    rulebook (16,384 rows with padding rows); each case run twice and
-    required bit-equal; per pair the kernel's, the plain version's and the
-    pre-gathered matmul's times beside the bound."""
+    neighbours per row) and level-3 rulebook (16,384 rows with padding
+    rows); each case run twice and required bit-equal, its compaction pass
+    required equal to compact_pairs_plain; per pair and per bench case the
+    kernel's, the plain version's and the pre-gathered matmul's times beside
+    the bound, and the compaction pass's and the slab sum's times alone."""
     from seggroup_tpu_torch.sparse import cuda_subm_dw
     from seggroup_tpu_torch.sparse.conv import subm_dw_plain
 
@@ -585,23 +586,41 @@ def check_subm_dw(torch, dev, card, bench):
         got = cuda_subm_dw.subm_dw_cuda(f, d, rb)
         again = cuda_subm_dw.subm_dw_cuda(f, d, rb)
         want = subm_dw_plain(f, d, rb, torch.bfloat16)
+        cin_p, cout_p = -(-cin // 8) * 8, -(-cout // 8) * 8
+        slabs, slab_rows = cuda_subm_dw.slabs_for(rows, 27, cin_p, cout_p, sms)
+        pairs, counts = cuda_subm_dw.compact_pairs_cuda(rb, slabs, slab_rows)
+        want_pairs, want_counts = cuda_subm_dw.compact_pairs_plain(rb, slabs, slab_rows)
         torch.cuda.synchronize()
         err, scale = float((got - want).abs().max()), float(want.abs().max())
-        slabs, slab_rows = cuda_subm_dw.slabs_for(rows, 27, -(-cin // 8) * 8, -(-cout // 8) * 8,
-                                                  sms)
+        filled = torch.arange(slab_rows, device=dev)[None, None, :] < want_counts[:, :, None]
+        compact_equal = (torch.equal(counts, want_counts)
+                         and torch.equal(pairs[filled], want_pairs[filled]))
+        del pairs, want_pairs, filled
         line = (f"K3 {cuda_subm_dw.regime(cin)} ({cin},{cout}){note}: max |kernel - plain| = "
                 f"{err:.3e} = {err / scale:.2e} of max|plain| (sums over {rows} rows, "
                 f"{pairs_present / rows:.2f} present neighbours per row; {slabs} slabs of "
-                f"{slab_rows} rows)")
+                f"{slab_rows} rows, tile {cuda_subm_dw.tile(cin_p, cout_p)}; "
+                f"{int((want_counts == 0).sum())} of {want_counts.numel()} (slab, offset) "
+                f"segments empty)")
         if err > K3_RTOL * scale or not torch.isfinite(got).all():
             raise AssertionError(line)
         if not torch.equal(got, again):
             raise AssertionError(f"{line}: two runs on the same inputs differ")
+        if not compact_equal:
+            raise AssertionError(f"{line}: the compaction pass differs from compact_pairs_plain")
         max_err = max(max_err, err)
-        if note:
-            print(line + "; bit-equal across two runs", flush=True)
+        if note and not note.startswith(" bench"):
+            print(line + "; bit-equal across two runs, compaction equal to its plain version",
+                  flush=True)
             continue
         ms = cuda_ms(lambda: cuda_subm_dw.subm_dw_cuda(f, d, rb), reps=30, warmup=3)
+        compact_ms = cuda_ms(lambda: cuda_subm_dw.compact_pairs_cuda(rb, slabs, slab_rows),
+                             reps=30, warmup=3)
+        sum_ms = 0.0
+        if slabs > 1:
+            ws = torch.zeros((slabs, 27, cin_p, cout_p), dtype=torch.float32, device=dev)
+            sum_ms = cuda_ms(lambda: cuda_subm_dw.sum_slabs_cuda(ws), reps=30, warmup=3)
+            del ws
         plain_ms = cuda_ms(lambda: subm_dw_plain(f, d, rb, torch.bfloat16), reps=3, warmup=1)
         a = torch.cat([f, f.new_zeros(1, cin)])[rb.long()].reshape(rows, 27 * cin)
         library_ms = cuda_ms(lambda: torch.matmul(a.T, d), reps=20, warmup=2)
@@ -613,10 +632,12 @@ def check_subm_dw(torch, dev, card, bench):
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
         bound = max(t_bytes, t_ops)
         by = "bytes" if t_bytes >= t_ops else "operations"
-        print(f"{line}; bit-equal across two runs; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
-              f"library {library_ms:.4f} ms, bound {bound:.4f} ms ({by}); "
+        print(f"{line}; bit-equal across two runs, compaction equal to its plain version; "
+              f"kernel {ms:.4f} ms (compaction {compact_ms:.4f} ms, slab sum {sum_ms:.4f} ms, "
+              f"product {ms - compact_ms - sum_ms:.4f} ms), plain {plain_ms:.3f} ms, library "
+              f"{library_ms:.4f} ms, bound {bound:.4f} ms ({by}); "
               f"{flops / ms / 1e9:.1f} TFLOP/s on {card}", flush=True)
-        if (cin, cout) == K2_TIMED:
+        if (cin, cout) == K2_TIMED and not note:
             timed = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound,
                          bound_by=by)
     return {"name": "subm_dw", "route": "cuda",
@@ -1391,7 +1412,7 @@ def build_all() -> None:
             lib, log, seconds = job.result()
             print(f"built {os.path.relpath(lib, ROOT)} in {seconds:.2f} s", flush=True)
             for line in log.splitlines():
-                if "ptxas info" in line and "Compile time" not in line:
+                if ("ptxas info" in line and "Compile time" not in line) or "spill" in line:
                     print("  " + line.strip(), flush=True)
 
 

@@ -131,7 +131,7 @@ def _pointgroup(seed: int, dev):
 # kernel-name fragments of each group of the train step's device time
 K2_KERNEL = "subm_gather_gemm"
 GROUPS = (("K2 subm_conv", (K2_KERNEL,)),
-          ("K3 subm_dw", ("subm_dw_gemm", "sum_slabs")),
+          ("K3 subm_dw", ("subm_dw_compact", "subm_dw_gemm", "sum_slabs")),
           ("other GEMMs", ("gemm", "cutlass", "sm90_xmma", "cublas", "splitK")),
           ("sum reductions (BatchNorm, loss)", ("reduce_kernel",)),
           ("index backward (up-conv gathers)", ("indexing_backward",)),

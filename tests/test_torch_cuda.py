@@ -96,18 +96,22 @@ def test_subm_conv_kernel_refuses_float32():
         cuda_subm_conv.subm_conv_cuda(f.float(), w, rb)
 
 
-@pytest.mark.parametrize("m,cin,cout", [
-    (20000, 3, 32),      # the stem, Cin padded to 8: K3b shift 2
-    (20000, 32, 64),     # K3b shift 2, two Cout tiles
-    (20003, 64, 64),     # K3b shift 1, M not a multiple of the chunk
-    (20000, 128, 96),    # K3a, Cout 96 in a 128-wide tile
-    (8192, 384, 256),    # K3a, the widest
-    (5000, 40, 20),      # Cin and Cout not multiples of 8 (padded)
-    (300, 96, 96),       # one slab: no second pass
+@pytest.mark.parametrize("m,cin,cout,holes", [
+    (20000, 3, 32, False),      # the stem, Cin padded to 8: K3b shift 2
+    (20000, 32, 64, False),     # K3b shift 2, the wide Cout tile
+    (20003, 64, 64, False),     # K3b shift 1, M not a multiple of a slab
+    (20000, 128, 96, False),    # K3a, Cout 96 in a 128-wide tile
+    (8192, 384, 256, False),    # K3a, the widest
+    (5000, 40, 20, False),      # Cin and Cout not multiples of 8 (padded)
+    (300, 96, 96, False),       # one slab: no second pass
+    (40000, 128, 256, True),    # whole slabs without an offset, one offset nowhere
 ])
-def test_subm_dw_kernel_matches_plain(m, cin, cout):
+def test_subm_dw_kernel_matches_plain(m, cin, cout, holes):
     dev = _card()
     f, _, rb = (x.to(dev) for x in _subm_case(m, cin, cout))
+    if holes:
+        rb[: m // 2, 3] = m
+        rb[:, 9] = m
     g = torch.Generator().manual_seed(m)
     dout = torch.randn(m, cout, generator=g).to(dev).to(torch.bfloat16)
     before = cuda_subm_dw.launches
@@ -119,6 +123,45 @@ def test_subm_dw_kernel_matches_plain(m, cin, cout):
     assert got.dtype == torch.float32 and got.shape == (27, cin, cout)
     assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
     assert torch.equal(got, again)  # no atomics: the same bits on every run
+    if holes:
+        assert (got[9] == 0).all()
+
+
+@pytest.mark.parametrize("m,slabs,slab_rows,absent", [
+    (20003, 10, 2001, 0.85),    # ragged: the last slab holds 1,994 rows
+    (131072, 8, 16384, 0.5),    # the longest slabs
+    (300, 1, 300, 0.3),         # one slab
+    (40000, 20, 2000, 0.5),     # whole slabs without an offset
+])
+def test_subm_dw_compaction_matches_plain(m, slabs, slab_rows, absent):
+    """The kernel's compaction pass equals compact_pairs_plain exactly: the
+    counts, and the pairs of each segment up to its count."""
+    dev = _card()
+    rb = _subm_case(m, 8, 8, seed=m, absent=absent)[2].to(dev)
+    rb[: m // 2, 3] = m
+    rb[:, 9] = -1  # any value outside [0, M) is absent
+    pairs, counts = cuda_subm_dw.compact_pairs_cuda(rb, slabs, slab_rows)
+    want_pairs, want_counts = cuda_subm_dw.compact_pairs_plain(rb, slabs, slab_rows)
+    torch.cuda.synchronize()
+    assert torch.equal(counts, want_counts)
+    assert (counts[:, 9] == 0).all()
+    if slab_rows <= m // 2:  # the first slab lacks offset 3 wholly
+        assert int(counts[0, 3]) == 0
+    filled = torch.arange(slab_rows, device=dev)[None, None, :] < counts[:, :, None]
+    assert torch.equal(pairs[filled], want_pairs[filled])
+
+
+def test_subm_dw_slab_sum_adds_in_order():
+    """The slab-sum pass gives the bits of adding the slabs one after the
+    other, in order."""
+    dev = _card()
+    g = torch.Generator().manual_seed(3)
+    ws = (torch.randn(7, 27, 40, 24, generator=g) * 10 ** torch.randn(7, 1, 1, 1, generator=g))
+    ws = ws.to(dev)
+    want = ws[0].clone()
+    for t in range(1, ws.shape[0]):
+        want = want + ws[t]
+    assert torch.equal(cuda_subm_dw.sum_slabs_cuda(ws), want)
 
 
 def test_subm_conv_backward_on_card_matches_cpu():

@@ -152,17 +152,29 @@ def test_rulebook_is_symmetric(conv_type):
                                         (16384, 384, 256), (16384, 256, 256), (2048, 96, 96)])
 def test_k3_slabs_fill_the_card_within_the_workspace(m, cin, cout):
     """K3's row slabs (sparse/cuda_subm_dw.slabs_for) at Res16UNet34C's
-    shapes on 132 SMs: at least two CTAs per SM where the rows allow, slabs
-    of at most 16,384 rows (the length of a CTA's sum) and a bounded
-    workspace, and slabs that cover the rows in whole chunks."""
+    shapes on 132 SMs, for the product's (Cin tile, Cout tile) at each
+    shape: at least two CTAs per SM where the rows allow, slabs of at most
+    16,384 rows (the length of a CTA's sum) and a bounded workspace, and
+    slabs that cover the rows."""
     sms = 132
     slabs, rows = cuda_subm_dw.slabs_for(m, 27, cin, cout, sms)
-    tm, tn = cuda_subm_dw.TILES[cuda_subm_dw.regime(cin)]
+    tm, tn = cuda_subm_dw.tile(cin, cout)
     per_slab = 27 * -(-cin // tm) * -(-cout // tn)
-    assert rows % cuda_subm_dw.CHUNK_ROWS == 0 and (slabs - 1) * rows < m <= slabs * rows
+    assert (slabs - 1) * rows < m <= slabs * rows
     assert slabs * 27 * cin * cout * 4 <= cuda_subm_dw.WORKSPACE_BYTES
     assert rows <= cuda_subm_dw.MAX_SLAB_ROWS
     if -(-m // cuda_subm_dw.MIN_SLAB_ROWS) * per_slab >= 2 * sms:  # the rows allow it
         assert slabs * per_slab >= 2 * sms
     else:
         assert rows <= cuda_subm_dw.MIN_SLAB_ROWS
+
+
+def test_k3_regime_follows_the_pallas_variant():
+    """Each channel count goes to the K3 entry point named after the Pallas
+    weight-gradient variant the JAX engine picks for it (its lane-pack
+    shift: 2 and 1 for `_dw_kernel_packed`, 0 for `_dw_kernel`)."""
+    from seggroup_tpu.sparse.pallas_conv import _pack_shift
+
+    names = {2: cuda_subm_dw.K3B_SHIFT2, 1: cuda_subm_dw.K3B_SHIFT1, 0: cuda_subm_dw.K3A}
+    for cin in range(1, 400):
+        assert cuda_subm_dw.regime(cin) == names[_pack_shift(cin)], cin

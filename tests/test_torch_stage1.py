@@ -169,6 +169,65 @@ def test_bf16_default_runs():
     assert torch.isfinite(out.acc).all() and torch.isfinite(out.iou_sem).all()
 
 
+@pytest.fixture(scope="module")
+def bf16_models(jax_model):
+    """The default compute dtype on both sides, bf16 edge-conv
+    intermediates, at the shared weights and randomised statistics."""
+    _, variables = jax_model
+    jm = J.SegGroupGNN(compute_dtype=jnp.bfloat16, **MODEL)
+    tm = T.SegGroupGNN(compute_dtype=torch.bfloat16, device="cpu", **MODEL)
+    tm.load_state_dict(params_from_flax(variables), strict=True)
+    return jm, variables, tm
+
+
+@pytest.mark.parametrize("mode", ["ins_infer", "sem_infer"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_bf16_forward_matches_jax(seed, mode, bf16_models):
+    """At bf16 the port's forward equals the jitted JAX forward: every
+    integer output exactly (roots, labels, exports), the float outputs
+    (metrics over those labels) within 1e-6 as at float32."""
+    jm, variables, tm = bf16_models
+    want = jax.tree.map(np.asarray, jax.jit(
+        lambda v, sc: jm.apply(v, sc, mode=mode, train=False))(
+            variables, jax_scene(seed=seed, **SCENE)))
+    got = tm(make_synthetic_scene(seed=seed, **SCENE).to("cpu"), mode=mode)
+    for name in J.Stage1Output._fields:
+        a, b = np.asarray(getattr(want, name)), getattr(got, name).numpy()
+        assert a.shape == b.shape, name
+        if a.dtype.kind == "f":
+            np.testing.assert_allclose(b, a, rtol=1e-6, atol=1e-6, err_msg=name)
+        else:
+            np.testing.assert_array_equal(b, a, err_msg=name)
+
+
+def _bf16_ulp(x: np.ndarray) -> np.ndarray:
+    """The spacing of bf16 values (8 significant bits) at |x|."""
+    return 2.0 ** (np.floor(np.log2(np.maximum(np.abs(x), 2.0 ** -126))) - 7)
+
+
+@pytest.mark.parametrize("name,layers", [("mlp_2", 1), ("mlp_3", 2)])
+def test_bf16_edge_conv_layers_within_one_ulp(name, layers, bf16_models):
+    """The bf16 edge-conv layers against jitted JAX at the shared weights:
+    each output element within one bf16 ulp of its magnitude (the two
+    frameworks round the float32 BatchNorm output to bf16 at the same
+    places; an element whose float32 value falls near a rounding boundary
+    can land one ulp apart)."""
+    _, v, tm = bf16_models
+    rng = np.random.default_rng(11)
+    x = rng.normal(size=(2048, 9)).astype(np.float32)
+    idx = rng.integers(0, 2048, (2048, 20)).astype(np.int32)
+    pv = rng.random(2048) < 0.9
+    want = np.asarray(jax.jit(lambda p, a, b, c: J.EdgeConvBlock(
+        layers=layers, dtype=jnp.bfloat16).apply(p, a, b, c, False))(
+            _sub(v, name), jnp.asarray(x), jnp.asarray(idx), jnp.asarray(pv)))
+    got = getattr(tm, name)(torch.from_numpy(x), torch.from_numpy(idx),
+                            torch.from_numpy(pv)).detach().numpy()
+    assert got.dtype == want.dtype == np.float32
+    ulp = _bf16_ulp(np.maximum(np.abs(got), np.abs(want)))
+    assert (np.abs(got - want) <= ulp).all()
+    assert (got[~pv] == 0).all()
+
+
 def test_entry_and_infer_scenes(tmp_path):
     fn, (model, scene) = entry(device="cpu")
     loss, final_sem, iou_sem = fn(model, scene)
