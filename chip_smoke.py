@@ -8,7 +8,12 @@ Phases, in order; any failure exits non-zero:
      nvcc per source, all started together);
   2. each kernel against its plain PyTorch version on the card, at the main
      paths' shapes and at edge cases; kernel, plain and library times (CUDA
-     events) beside each kernel's bound;
+     events) beside each kernel's bound; K2 timed a call back to back, as
+     every kernel is, and beside it with its launches queued behind a spin
+     (the card's time without the host's), at every pair of Res16UNet34C
+     and of its data gradient, on a bench scene's level 0 and level 3, with
+     whole row tiles lacking every offset and with a 5^3 kernel; K2's
+     register and spill counts from the build, no spill allowed;
   3. the stage-1 path at full width: ins_infer over 4 bench-size synthetic
      scenes (150,528 points, 512 segment slots, 4,096 edge slots) through
      infer.infer_scenes, labels exported to a temporary directory, and one
@@ -87,6 +92,9 @@ K2_PAIRS = [(3, 32), (32, 32), (32, 64), (64, 64), (64, 128), (128, 128), (128, 
 K2_DGRAD_PAIRS = list(dict.fromkeys((co, ci) for ci, co in K2_PAIRS if ci != 3))
 K2_TIMED = (384, 256)  # the widest pair: the one the kernels line reports
 K2_RTOL = 1e-4  # of max|plain|: only the order of the float32 sums differs
+# K2's device time: launches queued behind a spin of this many cycles
+# (about 10 ms)
+SPIN_CYCLES = 20_000_000
 K3_RTOL = 1e-4  # of max|plain|: the same, over sums as long as M
 # stage-2 training: the training driver's defaults (cli/stage2_train_minkunet.py)
 TRAIN_BATCH, TRAIN_POOL, TRAIN_WARMUP, TRAIN_STEPS, TRAIN_FENCED = 8, 8, 2, 10, 3
@@ -137,6 +145,26 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int, warmup: int = 2) -> float:
+    """Mean device milliseconds per call over `reps` calls queued behind a
+    spin on the card, so that the host's time to launch them is hidden and
+    the card runs them back to back (CUDA events around them)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SPIN_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -324,10 +352,11 @@ def card_vs_cpu(torch, dev):
               f"float fields within 1e-5", flush=True)
 
 
-def k2_sites(torch, dev, m: int):
+def k2_sites(torch, dev, m: int, kernel: int = 3):
     """A dense voxel set: each of two batch ids holds a random half of a
     51^3 grid, in the voxeliser's sorted order, cut to m rows; its rulebook
-    built on the card (about 13 present neighbours per site)."""
+    for a cube of `kernel` built on the card (about 13 present neighbours
+    per site at kernel 3)."""
     from seggroup_tpu_torch.sparse.conv import build_subm_rulebook
     from seggroup_tpu_torch.sparse.tensor import SparseTensor
 
@@ -342,7 +371,7 @@ def k2_sites(torch, dev, m: int):
     st = SparseTensor(coords, torch.zeros((m, 1), device=dev),
                       torch.ones(m, dtype=torch.bool, device=dev),
                       torch.tensor(m, dtype=torch.int32, device=dev))
-    return build_subm_rulebook(st, 3)
+    return build_subm_rulebook(st, kernel)
 
 
 def bench_rulebooks(torch, dev):
@@ -371,21 +400,97 @@ def bench_rulebooks(torch, dev):
             (rb3, f" bench level 3 ({int(st.valid.sum())} valid rows)")]
 
 
-def check_subm_conv(torch, dev, card, bench):
-    """K2 against its plain version in bf16 at every (Cin, Cout) of
-    Res16UNet34C, on 131,072 dense sites, plus rows with no neighbour, a
-    ragged M, the data gradient's transposed pairs, and a bench scene's
-    level-0 and level-3 rulebooks; each case run twice and required
-    bit-equal; per pair the kernel's, the plain version's and the
-    pre-gathered matmul's times beside the bound."""
+def k2_build_lines(log: str) -> list[tuple[str, int, int]]:
+    """(function, registers, spill bytes) of each K2 function in nvcc's
+    -Xptxas -v output."""
+    out, name = [], None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name, spill = line.split("'")[1], 0
+        elif name and "spill stores" in line:
+            words = line.split()
+            spill = int(words[words.index("spill") - 2]) + int(words[-4])
+        elif name and "Used" in line and "registers" in line:
+            words = line.split()
+            out.append((name, int(words[words.index("Used") + 1]), spill))
+            name = None
+    return out
+
+
+def k2_case(torch, f, w, rb, note, card, timed=True):
+    """One K2 case: held against its plain version (K2_RTOL of max|plain|,
+    finite, rows without neighbours exactly 0, bit-equal across two runs),
+    then, when `timed`, timed a call back to back (`ms`, as every kernel)
+    and behind a spin (`device_ms`) beside its plain version, the
+    pre-gathered matmul and the bound. Returns the largest error and the
+    times."""
     from seggroup_tpu_torch.sparse import cuda_subm_conv
     from seggroup_tpu_torch.sparse.conv import subm_conv_plain
 
+    rows, kvol = rb.shape
+    cin, cout = w.shape[1], w.shape[2]
+    got = cuda_subm_conv.subm_conv_cuda(f, w, rb)
+    again = cuda_subm_conv.subm_conv_cuda(f, w, rb)
+    want = subm_conv_plain(f, w, rb, torch.bfloat16)
+    torch.cuda.synchronize()
+    err, scale = float((got - want).abs().max()), float(want.abs().max())
+    present = int((rb < rows).sum())
+    tile_offsets = float(cuda_subm_conv.present_offsets_plain(rb).sum()) / -(-rows // 128)
+    p = cuda_subm_conv.plan(cin, cout, kvol, rows)
+    line = (f"K2 {cuda_subm_conv.regime(cin)} ({cin},{cout}) K={kvol}{note}: max |kernel - "
+            f"plain| = {err:.3e} = {err / scale:.2e} of max|plain| ({present / rows:.2f} "
+            f"present neighbours per row, {tile_offsets:.2f} present offsets per 128-row "
+            f"tile; N tile {p.n} x {p.n_tiles}, {p.stages} stages"
+            f"{', warp-specialised' if p.ws else ''}{', no weights pass' if p.direct else ''})")
+    if err > K2_RTOL * scale or not torch.isfinite(got).all():
+        raise AssertionError(line)
+    if not (got[(rb == rows).all(1)] == 0).all():
+        raise AssertionError(f"{line}: a row with no neighbour is not zero")
+    if not torch.equal(got, again):
+        raise AssertionError(f"{line}: two runs on the same inputs differ")
+    del got, again
+    if not timed:
+        print(line + "; bit-equal across two runs", flush=True)
+        return err, None
+    call = lambda: cuda_subm_conv.subm_conv_cuda(f, w, rb)  # noqa: E731
+    ms, dev_ms = cuda_ms(call, reps=30, warmup=3), device_ms(call, reps=30, warmup=3)
+    plain_ms = cuda_ms(lambda: subm_conv_plain(f, w, rb, torch.bfloat16), reps=3, warmup=1)
+    a = torch.cat([f, f.new_zeros(1, cin)])[rb.long()].reshape(rows, kvol * cin)
+    b = w.reshape(kvol * cin, cout)
+    library_ms = cuda_ms(lambda: torch.matmul(a, b), reps=20, warmup=2)
+    del a
+    # the bytes K2 must move (bf16 feats and weights, int32 rulebook, f32
+    # output), and 2*Cin*Cout operations per present pair
+    nbytes = rows * cin * 2 + rows * kvol * 4 + kvol * cin * cout * 2 + rows * cout * 4
+    flops = 2 * present * cin * cout
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
+    bound = max(t_bytes, t_ops)
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    print(f"{line}; bit-equal across two runs; kernel {ms:.4f} ms a call back to back, "
+          f"{dev_ms:.4f} ms behind a spin, plain {plain_ms:.3f} ms, library {library_ms:.4f} "
+          f"ms, bound {bound:.4f} ms ({by}); {flops / dev_ms / 1e9:.1f} TFLOP/s on {card}",
+          flush=True)
+    return err, dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, library_ms=library_ms,
+                     bound_ms=bound, bound_by=by)
+
+
+def check_subm_conv(torch, dev, card, bench):
+    """K2 against its plain version in bf16 at every (Cin, Cout) of
+    Res16UNet34C and of its data gradient, on 131,072 dense sites, plus rows
+    with no neighbour, a ragged M, whole 128-row tiles without any offset,
+    a 5^3 kernel (K = 125), and a bench scene's level-0 and level-3
+    rulebooks; each case run twice and required bit-equal; each case but
+    the first two edge cases timed beside the plain version, the
+    pre-gathered matmul and the bound."""
     m = CAPACITY
     rb_full = k2_sites(torch, dev, m)
     rb_lonely = rb_full.clone()
     rb_lonely[::7] = m  # every 7th row: all 27 neighbours absent
-    rb_ragged = k2_sites(torch, dev, m - 13)  # not a multiple of the 64-row tile
+    rb_ragged = k2_sites(torch, dev, m - 13)  # not a multiple of the row tile
+    rb_holes = rb_full.clone()
+    rb_holes[128 * 40:128 * 200] = m  # 160 whole row tiles without any offset
+    rb_holes[128 * 300:128 * 301, :26] = m  # a tile with the last offset alone
+    rb_k125 = k2_sites(torch, dev, m, kernel=5)
     pairs_present = int((rb_full < m).sum())
     print(f"K2 sites: M={m}, {pairs_present / m:.2f} present neighbours per site", flush=True)
     g = torch.Generator(device=dev).manual_seed(0)
@@ -395,54 +500,24 @@ def check_subm_conv(torch, dev, card, bench):
     cases += [(c, rb_full, " (data gradient)") for c in K2_DGRAD_PAIRS if c not in K2_PAIRS]
     (rb_l0, l0), (rb_l3, l3) = bench
     cases += [((3, 32), rb_l0, l0), ((32, 32), rb_l0, l0),
-              ((384, 256), rb_l3, l3), ((256, 384), rb_l3, l3 + " (data gradient)")]
-    max_err, timed = 0.0, None
+              ((384, 256), rb_l3, l3), ((256, 384), rb_l3, l3 + " (data gradient)"),
+              ((128, 128), rb_holes, " tiles without any offset"),
+              ((3, 32), rb_k125, " 5^3 kernel")]
+    worst, timed = 0.0, None
     for (cin, cout), rb, note in cases:
-        rows = rb.shape[0]
+        rows, kvol = rb.shape
         f = torch.randn(rows, cin, generator=g, device=dev).to(torch.bfloat16)
-        w = (torch.randn(27, cin, cout, generator=g, device=dev)
-             / (27 * cin) ** 0.5).to(torch.bfloat16)
-        got = cuda_subm_conv.subm_conv_cuda(f, w, rb)
-        again = cuda_subm_conv.subm_conv_cuda(f, w, rb)
-        want = subm_conv_plain(f, w, rb, torch.bfloat16)
-        torch.cuda.synchronize()
-        err, scale = float((got - want).abs().max()), float(want.abs().max())
-        line = (f"K2 {cuda_subm_conv.regime(cin)} ({cin},{cout}){note}: "
-                f"max |kernel - plain| = {err:.3e} = {err / scale:.2e} of max|plain| "
-                f"({int((rb < rows).sum()) / rows:.2f} present neighbours per row)")
-        if err > K2_RTOL * scale or not torch.isfinite(got).all():
-            raise AssertionError(line)
-        if not (got[(rb == rows).all(1)] == 0).all():
-            raise AssertionError(f"{line}: a row with no neighbour is not zero")
-        if not torch.equal(got, again):
-            raise AssertionError(f"{line}: two runs on the same inputs differ")
-        max_err = max(max_err, err)
-        if note:
-            print(line + "; bit-equal across two runs", flush=True)
-            continue
-        ms = cuda_ms(lambda: cuda_subm_conv.subm_conv_cuda(f, w, rb), reps=50, warmup=3)
-        plain_ms = cuda_ms(lambda: subm_conv_plain(f, w, rb, torch.bfloat16), reps=3, warmup=1)
-        a = torch.cat([f, f.new_zeros(1, cin)])[rb.long()].reshape(rows, 27 * cin)
-        b = w.reshape(27 * cin, cout)
-        library_ms = cuda_ms(lambda: torch.matmul(a, b), reps=20, warmup=2)
-        del a
-        # the bytes K2 must move (bf16 feats and weights, int32 rulebook,
-        # f32 output), and 2*Cin*Cout operations per present pair
-        nbytes = rows * cin * 2 + rows * 27 * 4 + 27 * cin * cout * 2 + rows * cout * 4
-        flops = 2 * pairs_present * cin * cout
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
-        bound = max(t_bytes, t_ops)
-        by = "bytes" if t_bytes >= t_ops else "operations"
-        print(f"{line}; bit-equal across two runs; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
-              f"library {library_ms:.4f} ms, bound {bound:.4f} ms ({by}); "
-              f"{flops / ms / 1e9:.1f} TFLOP/s on {card}", flush=True)
-        if (cin, cout) == K2_TIMED:
-            timed = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound,
-                         bound_by=by)
+        w = (torch.randn(kvol, cin, cout, generator=g, device=dev)
+             / (kvol * cin) ** 0.5).to(torch.bfloat16)
+        edge = note in (" rows without neighbours", f" M={m - 13}")
+        err, t = k2_case(torch, f, w, rb, note, card, timed=not edge)
+        if (cin, cout) == K2_TIMED and not note:
+            timed = t
+        worst = max(worst, err)
     return {"name": "subm_conv", "route": "cuda",
             "source": "seggroup_tpu_torch/csrc/subm_conv.cu",
             "replaces": "seggroup_tpu/sparse/pallas_conv.py:268",
-            "max_abs_err": max_err, **timed}
+            "max_abs_err": worst, **timed}
 
 
 def run_stage2_path(torch, dev, card):
@@ -1194,10 +1269,8 @@ def check_subm_conv_pointgroup(torch, dev, card):
     PointGroup at m=16, on 65,536 dense sites (the U-Net's level-0
     capacity): K = 27 over the site rulebook, and K = 1 over each row's own
     index (the block after a concatenation); each case run twice and
-    required bit-equal; kernel and plain times beside the bound."""
-    from seggroup_tpu_torch.sparse import cuda_subm_conv
-    from seggroup_tpu_torch.sparse.conv import subm_conv_plain
-
+    required bit-equal; kernel, plain and pre-gathered matmul times beside
+    the bound."""
     m = PG_VOXEL_CAP
     rb27 = k2_sites(torch, dev, m)
     rb1 = torch.arange(m, dtype=torch.int32, device=dev)[:, None].contiguous()
@@ -1208,26 +1281,8 @@ def check_subm_conv_pointgroup(torch, dev, card):
         f = torch.randn(m, cin, generator=g, device=dev).to(torch.bfloat16)
         w = (torch.randn(kvol, cin, cout, generator=g, device=dev)
              / (kvol * cin) ** 0.5).to(torch.bfloat16)
-        got = cuda_subm_conv.subm_conv_cuda(f, w, rb)
-        again = cuda_subm_conv.subm_conv_cuda(f, w, rb)
-        want = subm_conv_plain(f, w, rb, torch.bfloat16)
-        torch.cuda.synchronize()
-        err, scale = float((got - want).abs().max()), float(want.abs().max())
-        line = (f"K2 {cuda_subm_conv.regime(cin)} PointGroup ({cin},{cout}) K={kvol}, M={m}: "
-                f"max |kernel - plain| = {err:.3e} = {err / scale:.2e} of max|plain|")
-        if err > K2_RTOL * scale or not torch.isfinite(got).all():
-            raise AssertionError(line)
-        if not torch.equal(got, again):
-            raise AssertionError(f"{line}: two runs on the same inputs differ")
-        worst = max(worst, err / scale)
-        ms = cuda_ms(lambda: cuda_subm_conv.subm_conv_cuda(f, w, rb), reps=30, warmup=3)
-        plain_ms = cuda_ms(lambda: subm_conv_plain(f, w, rb, torch.bfloat16), reps=3, warmup=1)
-        nbytes = m * cin * 2 + m * kvol * 4 + kvol * cin * cout * 2 + m * cout * 4
-        flops = 2 * int((rb < m).sum()) * cin * cout
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
-        print(f"{line}; bit-equal across two runs; kernel {ms:.4f} ms, plain {plain_ms:.3f} "
-              f"ms, bound {max(t_bytes, t_ops):.4f} ms "
-              f"({'bytes' if t_bytes >= t_ops else 'operations'}) on {card}", flush=True)
+        err, _ = k2_case(torch, f, w, rb, f" PointGroup, M={m}", card)
+        worst = max(worst, err)
     return worst
 
 
@@ -1408,12 +1463,18 @@ def build_all() -> None:
     mods = (cuda_fps, cuda_subm_conv, cuda_subm_dw, cuda_cc)
     with ThreadPoolExecutor(max_workers=len(mods)) as pool:
         jobs = [pool.submit(timed, mod.build) for mod in mods]
-        for job in jobs:
+        for mod, job in zip(mods, jobs):
             lib, log, seconds = job.result()
             print(f"built {os.path.relpath(lib, ROOT)} in {seconds:.2f} s", flush=True)
             for line in log.splitlines():
                 if ("ptxas info" in line and "Compile time" not in line) or "spill" in line:
                     print("  " + line.strip(), flush=True)
+            if mod is cuda_subm_conv and log:
+                funcs = k2_build_lines(log)
+                print("K2 functions (registers, spill bytes): " + "; ".join(
+                    f"{name} {regs}, {spill}" for name, regs, spill in funcs), flush=True)
+                if not funcs or any(spill for _, _, spill in funcs):
+                    raise AssertionError("a K2 function spills registers")
 
 
 def main() -> int:

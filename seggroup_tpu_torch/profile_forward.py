@@ -129,15 +129,17 @@ def _pointgroup(seed: int, dev):
 
 
 # kernel-name fragments of each group of the train step's device time
-K2_KERNEL = "subm_gather_gemm"
-GROUPS = (("K2 subm_conv", (K2_KERNEL,)),
+# K2's two passes: the weights into K-major order, and the gather-GEMM
+# (subm_gather_gemm and its warp-specialised form subm_gather_gemm_ws)
+K2_KERNELS = ("subm_conv_weights_k_major", "subm_gather_gemm")
+GROUPS = (("K2 subm_conv", K2_KERNELS),
           ("K3 subm_dw", ("subm_dw_compact", "subm_dw_gemm", "sum_slabs")),
           ("other GEMMs", ("gemm", "cutlass", "sm90_xmma", "cublas", "splitK")),
           ("sum reductions (BatchNorm, loss)", ("reduce_kernel",)),
           ("index backward (up-conv gathers)", ("indexing_backward",)),
           ("rulebook sorts and searches", ("sort", "radix", "search", "bucketize")))
 # ... and of the PointGroup forward's
-GROUPS_POINTGROUP = (("K2 subm_conv", (K2_KERNEL,)),
+GROUPS_POINTGROUP = (("K2 subm_conv", K2_KERNELS),
                      ("K4 cc_sweep", ("cc_sweep_kernel",)),
                      ("GEMMs", ("gemm", "cutlass", "sm90_xmma", "cublas", "splitK")),
                      ("sorts and searches", ("sort", "radix", "search", "bucketize")),
@@ -213,7 +215,7 @@ def main(argv=None) -> None:
         # profile of the forward alone splits its time
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as fprof:
             _seconds(forward_alone)
-        fwd = [e for e in _kernels(fprof) if K2_KERNEL in e.key]
+        fwd = [e for e in _kernels(fprof) if any(k in e.key for k in K2_KERNELS)]
         k2_ms = sum(e.self_device_time_total for e in fwd) / 1e3
         k2_n = sum(e.count for e in fwd)
         total_ms, total_n = groups.get("K2 subm_conv", [0.0, 0])

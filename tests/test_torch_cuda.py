@@ -89,6 +89,75 @@ def test_subm_conv_kernel_matches_plain(m, cin, cout):
     assert (got[:100] == 0).all()
 
 
+@pytest.mark.parametrize("m,cin,cout,kvol,layout", [
+    (20000, 128, 128, 27, "empty_tiles"),   # whole 128-row tiles with no present offset
+    (20000, 64, 64, 27, "last_offset"),      # tiles where only the last offset is present
+    (20000, 96, 48, 1, "dense"),             # K = 1, N <= 64: no weights pass (direct)
+    (20000, 160, 80, 1, "dense"),            # K = 1, N = 80: with the weights pass
+    (20000, 3, 32, 125, "dense"),            # K = 125 (conv1_kernel_size=5)
+    (20000, 80, 80, 27, "dense"),            # a stage crosses an offset boundary
+    (20000, 6, 16, 27, "dense"),             # Cin padded from 6 to 8
+    (8192, 256, 384, 27, "dense"),           # Cout = 384: two N tiles
+    (131072, 384, 256, 27, "dense"),         # the warp-specialised kernel at full width
+])
+def test_subm_conv_kernel_edge_cases(m, cin, cout, kvol, layout):
+    """K2 against its plain version (1e-4 of max|plain|), bit-equal across
+    two runs, and exactly 0 on rows and tiles without any neighbour."""
+    dev = _card()
+    rng = np.random.default_rng(m + cin + kvol)
+    rb = rng.integers(0, m, size=(m, kvol)).astype(np.int32)
+    rb[rng.random((m, kvol)) < 0.5] = m
+    rb[:100] = m
+    if layout == "empty_tiles":
+        rb[128 * 10:128 * 40] = m
+        rb[128 * 50:128 * 51] = -7  # any value outside [0, M) is absent
+    if layout == "last_offset":
+        rb[128 * 10:128 * 40, :-1] = m
+    f = torch.from_numpy(rng.normal(size=(m, cin)).astype(np.float32)).to(torch.bfloat16)
+    w = torch.from_numpy((rng.normal(size=(kvol, cin, cout)) / np.sqrt(kvol * cin))
+                         .astype(np.float32)).to(torch.bfloat16)
+    f, w, rb = f.to(dev), w.to(dev), torch.from_numpy(rb).to(dev)
+    before = cuda_subm_conv.launches
+    got = cuda_subm_conv.subm_conv_cuda(f, w, rb)
+    again = cuda_subm_conv.subm_conv_cuda(f, w, rb)
+    assert cuda_subm_conv.launches == before + 2
+    # the plain version reads a zero pad row at M: absent neighbours as M
+    lonely_pairs = (rb < 0) | (rb >= m)
+    want = subm_conv_plain(f, w, torch.where(lonely_pairs, m, rb), torch.bfloat16)
+    torch.cuda.synchronize()
+    assert got.shape == (m, cout) and torch.isfinite(got).all()
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+    assert torch.equal(got, again)  # no atomics: the same bits on every run
+    assert (got[lonely_pairs.all(1)] == 0).all()
+    if layout == "empty_tiles":
+        assert (got[128 * 10:128 * 40] == 0).all()
+
+
+@pytest.mark.parametrize("kvol,cin,cout,view", [(27, 3, 32, False), (27, 96, 128, True),
+                                                 (1, 40, 20, False), (125, 8, 32, False)])
+def test_subm_conv_weights_pass_matches_plain(kvol, cin, cout, view):
+    """K2's first pass (the weights into K-major order, zero padding) equals
+    its plain version exactly, also on the data gradient's transposed view."""
+    import ctypes
+
+    dev = _card()
+    g = torch.Generator().manual_seed(kvol + cin)
+    if view:
+        w = torch.randn(kvol, cout, cin, generator=g).to(torch.bfloat16).to(dev)
+        w = w.flip(0).transpose(1, 2)
+    else:
+        w = torch.randn(kvol, cin, cout, generator=g).to(torch.bfloat16).to(dev)
+    cin_p, cout_p = -(-cin // 8) * 8, -(-cout // 8) * 8
+    lib = cuda_subm_conv._load()
+    wt = torch.full((cout_p, kvol * cin_p), 7.0, dtype=torch.bfloat16, device=dev)
+    err = lib.subm_conv_weights(ctypes.c_void_p(w.data_ptr()), ctypes.c_void_p(wt.data_ptr()),
+                                kvol, cin, cout, cin_p, cout_p, *w.stride(),
+                                ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    assert err == 0
+    torch.cuda.synchronize()
+    assert torch.equal(wt, cuda_subm_conv.weights_k_major_plain(w, cin_p, cout_p))
+
+
 def test_subm_conv_kernel_refuses_float32():
     dev = _card()
     f, w, rb = (x.to(dev) for x in _subm_case(256, 8, 8))
