@@ -8,12 +8,14 @@ Phases, in order; any failure exits non-zero:
      nvcc per source, all started together);
   2. each kernel against its plain PyTorch version on the card, at the main
      paths' shapes and at edge cases; kernel, plain and library times (CUDA
-     events) beside each kernel's bound; K2 timed a call back to back, as
-     every kernel is, and beside it with its launches queued behind a spin
-     (the card's time without the host's), at every pair of Res16UNet34C
-     and of its data gradient, on a bench scene's level 0 and level 3, with
-     whole row tiles lacking every offset and with a 5^3 kernel; K2's
-     register and spill counts from the build, no spill allowed;
+     events) beside each kernel's bound; K1, K2 and K4 timed a call back to
+     back, as every kernel is, and beside it with their launches queued
+     behind a spin (the card's time without the host's); K1's time per
+     dependent step of its k-step chain beside its bound; K2 at every pair
+     of Res16UNet34C and of its data gradient, on a bench scene's level 0
+     and level 3, with whole row tiles lacking every offset and with a 5^3
+     kernel; K1's, K2's and K4's register and spill counts from the build,
+     no spill allowed;
   3. the stage-1 path at full width: ins_infer over 4 bench-size synthetic
      scenes (150,528 points, 512 segment slots, 4,096 edge slots) through
      infer.infer_scenes, labels exported to a temporary directory, and one
@@ -41,7 +43,9 @@ Phases, in order; any failure exits non-zero:
      version (labels exactly equal after one sweep and at the fixpoint,
      bit-equal across two runs) on the doubled point set of a full-width
      PointGroup forward, on a bench scene clustered on its true labels, and
-     on edge cases; `semantic_radius_cc` on the card against the CPU; K2
+     on edge cases, with the pairs of its key runs beside those the function
+     needs and its wrapper's host time a call;
+     `semantic_radius_cc` on the card against the CPU; K2
      against its plain version at every PointGroup (Cin, Cout), K = 27 and
      K = 1;
  10. the PointGroup path at full width: instance-segmentation inference
@@ -227,8 +231,9 @@ def check_fps(torch, dev, card):
         want = masked_fps_plain(pts, valid, FPS_K)
         torch.cuda.synchronize()
         err = int((got.long() - want.long()).abs().max())
-        print(f"K1 masked_fps {name} {tuple(pts.shape)} k={FPS_K}: "
-              f"max |kernel - plain| = {err}", flush=True)
+        print(f"K1 masked_fps {name} {tuple(pts.shape)} k={FPS_K}, "
+              f"{cuda_fps.variant(pts.shape[1])} design: max |kernel - plain| = {err}",
+              flush=True)
         if err != 0:
             raise AssertionError(f"K1 disagrees with its plain version on {name}")
         max_err = max(max_err, err)
@@ -238,6 +243,7 @@ def check_fps(torch, dev, card):
     pts, valid = timed
     b, p, _ = pts.shape
     ms = cuda_ms(lambda: cuda_fps.masked_fps_cuda(pts, valid, FPS_K), reps=50, warmup=5)
+    dev_ms = device_ms(lambda: cuda_fps.masked_fps_cuda(pts, valid, FPS_K), reps=50, warmup=5)
     plain_ms = cuda_ms(lambda: masked_fps_plain(pts, valid, FPS_K), reps=3, warmup=1)
     n_valid = int(valid.sum())
     n_start_invalid = int((~valid[:, 0]).sum())
@@ -248,13 +254,19 @@ def check_fps(torch, dev, card):
     nbytes = 12 * (n_valid + n_start_invalid) + b * p + b * FPS_K * 4
     flops = 8 * FPS_K * n_valid
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
-    print(f"K1 masked_fps stage-1 shape ({b},{p}) k={FPS_K}, {n_valid} valid: "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {max(t_bytes, t_ops):.4f} ms "
-          f"({'bytes' if t_bytes >= t_ops else 'operations'}) on {card}", flush=True)
+    # the picks form a chain of k dependent argmaxes: no design takes fewer
+    # than k steps, so the time of one step is what stands beside the bound
+    print(f"K1 masked_fps stage-1 shape ({b},{p}) k={FPS_K}, {n_valid} valid, "
+          f"{cuda_fps.variant(p)} design: kernel {ms:.4f} ms back to back, {dev_ms:.4f} ms "
+          f"device (launches queued behind a spin) = {dev_ms / FPS_K * 1e3:.3f} us per "
+          f"dependent step of the {FPS_K}-step chain; plain {plain_ms:.3f} ms, bound "
+          f"{max(t_bytes, t_ops):.5f} ms ({'bytes' if t_bytes >= t_ops else 'operations'}; "
+          f"no design takes fewer than the {FPS_K} dependent steps) on {card}", flush=True)
     return {"name": "masked_fps", "route": "cuda",
             "source": "seggroup_tpu_torch/csrc/fps.cu",
             "replaces": "seggroup_tpu/ops/pallas_fps.py:26",
-            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+            "max_abs_err": max_err, "ms": ms, "device_ms": dev_ms,
+            "ms_per_step": dev_ms / FPS_K, "plain_ms": plain_ms,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None}
@@ -400,8 +412,8 @@ def bench_rulebooks(torch, dev):
             (rb3, f" bench level 3 ({int(st.valid.sum())} valid rows)")]
 
 
-def k2_build_lines(log: str) -> list[tuple[str, int, int]]:
-    """(function, registers, spill bytes) of each K2 function in nvcc's
+def kernel_build_lines(log: str) -> list[tuple[str, int, int]]:
+    """(function, registers, spill bytes) of each function in nvcc's
     -Xptxas -v output."""
     out, name = [], None
     for line in log.splitlines():
@@ -1123,26 +1135,38 @@ def cc_problems(torch, dev, model):
     return out
 
 
-def cc_pair_tests(torch, prep, tile: int) -> tuple[int, int]:
-    """Pair tests of one sweep: (those of the tiles' whole ranges, tile *
-    (hi - lo) summed over tiles and groups, which is what a design that
-    walks each range for every query of the tile performs; those the
-    function needs). The function needs a distance only where the key test
-    can pass: for a valid query row with key k and group g, the rows of its
-    tile's range [lo, hi) whose key lies in k + off[g] - 1 .. k + off[g] + 1,
-    a run of the sorted keys found by two binary searches. Invalid rows keep
-    their label and need none."""
+def cc_pair_tests(torch, prep, tile: int) -> tuple[int, int, int]:
+    """Pair tests of one sweep, counted from the prepared keys (not from
+    the kernel): (those of the tiles' whole ranges, tile * (hi - lo) summed
+    over tiles and groups, which a design walking each range for every
+    query of the tile would test; those of every row's key runs, radius_cc.key_runs, which
+    K4 walks by construction, invalid rows included; those the function
+    needs, the key runs of the valid rows: a distance is needed only where
+    the key test can pass)."""
     from seggroup_tpu_torch.ops import radius_cc
 
     span = (prep.hi - prep.lo).clamp(min=0)
-    key = prep.key.long()
-    target = key[:, None] + prep.offs.long()[None, :]
-    first = torch.searchsorted(key, target - 1)
-    last = torch.searchsorted(key, target + 1, right=True)
-    lo = prep.lo.long().repeat_interleave(tile, dim=0)
-    hi = prep.hi.long().repeat_interleave(tile, dim=0)
-    run = (torch.minimum(last, hi) - torch.maximum(first, lo)).clamp(min=0)
-    return tile * int(span.sum()), int(run[key < radius_cc.PAD_KEY].sum())
+    start, end, _, _ = radius_cc.key_runs(prep)
+    run = (end - start).clamp(min=0)
+    return (tile * int(span.sum()), int(run.sum()),
+            int(run[prep.key < radius_cc.PAD_KEY].sum()))
+
+
+def host_us(fn, reps: int = 200) -> float:
+    """Host microseconds per call of `fn`, its launches queued behind a
+    spin on the card so that none waits for the card."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SPIN_CYCLES)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 def check_cc_sweep(torch, dev, card, model):
@@ -1198,35 +1222,43 @@ def check_cc_sweep(torch, dev, card, model):
         if row is None or doubled:
             each = cuda_ms_each(lambda: radius_cc.sweep(lab0, prep, r2), reps=30, warmup=3)
             ms = float(np.mean(each))
+            dev_ms = device_ms(lambda: radius_cc.sweep(lab0, prep, r2), reps=30, warmup=3)
+            wrapper_us = host_us(lambda: radius_cc.sweep(lab0, prep, r2))
             plain_ms = cuda_ms(lambda: radius_cc.sweep_plain(lab0, prep, r2), reps=2, warmup=1)
             # the operations the function needs: a distance (8 f32 operations:
             # 3 sub, 3 mul, 2 add) for each pair that can pass the key test,
             # not for each pair of a tile's whole ranges; its bytes: each row
             # read once (xyz, class, key, label: 24 B), one label written, the
             # two range tables read
-            walked, needed = cc_pair_tests(torch, prep, radius_cc.TILE)
+            whole, in_runs, needed = cc_pair_tests(torch, prep, radius_cc.TILE)
             flops = 8 * needed
             nbytes = n * 28 + 2 * prep.lo.numel() * 4
             t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
             bound, by = max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
-            print(f"K4 cc_sweep {name}: kernel {ms:.4f} ms per sweep (mean of {len(each)} "
-                  f"launches, min {min(each):.4f}, median {float(np.median(each)):.4f}), plain "
+            print(f"K4 cc_sweep {name}: kernel {ms:.4f} ms per sweep back to back (mean of "
+                  f"{len(each)} launches, min {min(each):.4f}, median "
+                  f"{float(np.median(each)):.4f}), {dev_ms:.4f} ms device (launches queued "
+                  f"behind a spin), the wrapper's host time {wrapper_us:.2f} us a call; plain "
                   f"{plain_ms:.3f} ms, bound {bound:.5f} ms ({by}: bytes {t_bytes:.5f} ms for "
                   f"{nbytes / 1e6:.2f} MB, operations {t_ops:.5f} ms for {needed / 1e6:.3f} M "
                   f"pair tests within the 3-cell key runs, "
-                  f"{needed / max(int(valid.sum()), 1):.1f} per valid row; the tiles' whole "
-                  f"ranges hold {walked / 1e6:.3f} M pairs, which this kernel walks), kernel "
-                  f"{ms / bound:.1f} times its bound; on {card}", flush=True)
+                  f"{needed / max(int(valid.sum()), 1):.1f} per valid row); every row's key "
+                  f"runs, which the kernel walks by construction, hold {in_runs / 1e6:.3f} M "
+                  f"pairs (a count from the keys, not a measurement; the tiles' whole "
+                  f"ranges {whole / 1e6:.3f} M); kernel "
+                  f"{dev_ms / bound:.1f} times its bound on device time; on {card}", flush=True)
             stats = {"rows": n, "valid_rows": int(valid.sum()), "sweeps_to_fixpoint": sweeps,
                      "ms": ms, "ms_min": min(each), "ms_median": float(np.median(each)),
+                     "device_ms": dev_ms, "host_us": wrapper_us,
                      "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-                     "pair_tests_needed": needed, "pair_tests_of_whole_ranges": walked}
+                     "pair_tests_needed": needed, "pair_tests_of_whole_ranges": whole}
             if row is None:
                 row = {"name": "cc_sweep", "route": "cuda",
                        "source": "seggroup_tpu_torch/csrc/cc_sweep.cu",
                        "replaces": "seggroup_tpu/ops/pallas_cc.py:131", "max_abs_err": 0,
                        "ms": ms, "ms_min": stats["ms_min"], "ms_median": stats["ms_median"],
-                       "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                       "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound,
+                       "bound_by": by,
                        "library_ms": None, "by_problem": {}}
             row["by_problem"][name] = stats
 
@@ -1469,12 +1501,13 @@ def build_all() -> None:
             for line in log.splitlines():
                 if ("ptxas info" in line and "Compile time" not in line) or "spill" in line:
                     print("  " + line.strip(), flush=True)
-            if mod is cuda_subm_conv and log:
-                funcs = k2_build_lines(log)
-                print("K2 functions (registers, spill bytes): " + "; ".join(
+            kernel = {cuda_fps: "K1", cuda_subm_conv: "K2", cuda_cc: "K4"}.get(mod)
+            if kernel and log:
+                funcs = kernel_build_lines(log)
+                print(f"{kernel} functions (registers, spill bytes): " + "; ".join(
                     f"{name} {regs}, {spill}" for name, regs, spill in funcs), flush=True)
                 if not funcs or any(spill for _, _, spill in funcs):
-                    raise AssertionError("a K2 function spills registers")
+                    raise AssertionError(f"a {kernel} function spills registers")
 
 
 def main() -> int:

@@ -60,9 +60,9 @@ def cc_sweep_cuda(labels: torch.Tensor, xyz: torch.Tensor, sem: torch.Tensor,
     if xyz.dtype != torch.float32 or r2.dtype != torch.float32 or r2.numel() != 1:
         raise ValueError("xyz must be float32 and r2 one float32")
     n = labels.shape[0]
-    if n == 0 or tile % 32 or n % tile or tile > 1024:
-        raise ValueError(f"N={n} must be a positive multiple of tile={tile}, tile of 32 "
-                         f"and at most 1024 (one thread per row of a tile)")
+    if n == 0 or tile <= 0 or tile % 32 or n % tile:
+        raise ValueError(f"N={n} must be a positive multiple of tile={tile}, and tile of 32 "
+                         f"(so that N is a multiple of the 32 query rows a CTA takes)")
     shapes = ((xyz, (n, 3)), (sem, (n,)), (key, (n,)), (lo, (n // tile, 9)),
               (hi, (n // tile, 9)), (offs, (9,)))
     if labels.ndim != 1 or any(tuple(t.shape) != s for t, s in shapes):

@@ -1,7 +1,8 @@
 """Kernel K1, masked farthest-point sampling, as a hand-written CUDA kernel
 for Hopper: the counterpart of seggroup_tpu/ops/pallas_fps.py.
 
-The source is `csrc/fps.cu` (its header states the design and the bound).
+The source is `csrc/fps.cu` (its header states the two designs and the
+bound); `variant` chooses the design by the row length P.
 It is compiled at first use with nvcc for sm_90a into `_build/`
 (`cuda_build`), loaded with ctypes and launched on the current stream.
 `launches` counts the launches made through `masked_fps_cuda`."""
@@ -20,6 +21,18 @@ SOURCE = cuda_build.CSRC / "fps.cu"
 launches = 0
 _lib = None
 
+# Largest P served by the warps design (a CTA of 4 warps per row, the
+# candidates in registers, 32 a lane at P = 4,096); a longer row goes to the
+# block design (a CTA of 256 threads, the row in shared memory). On an H100
+# the warps design took a quarter to a half of the block design's time on
+# full rows of 1,024, 2,048 and 4,096 candidates.
+WARPS_MAX_P = 4096
+
+
+def variant(p: int) -> str:
+    """Which design serves rows of P candidates: "warps" or "block"."""
+    return "warps" if p <= WARPS_MAX_P else "block"
+
 
 def build() -> tuple[Path, str]:
     """Compile csrc/fps.cu (once per source content) and return the shared
@@ -31,9 +44,8 @@ def _load():
     global _lib
     if _lib is None:
         lib = cuda_build.load(SOURCE, "libseggroup_fps")
-        lib.seggroup_masked_fps.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        lib.seggroup_masked_fps.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [
+            ctypes.c_void_p]
         lib.seggroup_masked_fps.restype = ctypes.c_int
         lib.seggroup_fps_max_points.argtypes = []
         lib.seggroup_fps_max_points.restype = ctypes.c_int
@@ -65,8 +77,8 @@ def masked_fps_cuda(points: torch.Tensor, valid: torch.Tensor, k: int) -> torch.
     if b == 0:
         return out
     stream = torch.cuda.current_stream(points.device).cuda_stream
-    err = lib.seggroup_masked_fps(xyz.data_ptr(), vmask.data_ptr(), out.data_ptr(),
-                                  b, p, k, points.device.index or 0, stream)
+    err = lib.seggroup_masked_fps(xyz.data_ptr(), vmask.data_ptr(), out.data_ptr(), b, p, k,
+                                  int(variant(p) == "warps"), points.device.index or 0, stream)
     if err != 0:
         raise RuntimeError(f"FPS kernel launch failed with cudaError {err}")
     launches += 1

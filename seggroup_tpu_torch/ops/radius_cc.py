@@ -167,6 +167,21 @@ def sweep_plain(labels: torch.Tensor, prep: Prep, r2: torch.Tensor,
     return out.reshape(n)
 
 
+def key_runs(prep: Prep) -> tuple[torch.Tensor, ...]:
+    """Each (row, group)'s candidates as K4 walks them: the rows of its
+    tile's range [lo, hi) whose key lies in key + off - 1 .. key + off + 1
+    form one run of the sorted keys, [start, end) (empty where end <=
+    start). Returns start, end and the range's lo, hi, each (N, 9) int64."""
+    tile = prep.key.shape[0] // prep.lo.shape[0]
+    key = prep.key.long()
+    target = key[:, None] + prep.offs.long()[None, :]
+    lo = prep.lo.long().repeat_interleave(tile, dim=0)
+    hi = prep.hi.long().repeat_interleave(tile, dim=0)
+    start = torch.maximum(torch.searchsorted(key, target - 1), lo)
+    end = torch.minimum(torch.searchsorted(key, target + 1, right=True), hi)
+    return start, end, lo, hi
+
+
 def sweep(labels: torch.Tensor, prep: Prep, r2: torch.Tensor, tile: int = TILE) -> torch.Tensor:
     """One sweep: kernel K4 on CUDA tensors, `sweep_plain` on CPU tensors."""
     if labels.is_cuda:

@@ -48,6 +48,26 @@ def test_fps_kernel_matches_plain(b, p, lengths, grid):
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("p", [1, 31, 32, 33, 1023, 1024, 1025, 2048, 4096, 4097, 16384])
+def test_fps_kernel_row_lengths(p):
+    """K1 on each side of a warp's width, of 1,024 and of the crossover from
+    its warps design to its block design (4,096), with rows of no valid
+    point, of one, of fewer valid points than k, full rows, and duplicate
+    points in every second row: picks equal the plain version's, index for
+    index."""
+    dev = _card()
+    b = 8 if p > 4096 else 64
+    rng = np.random.default_rng(p)
+    lengths = rng.integers(0, p + 1, b)
+    lengths[:4] = [0, 1, min(p, 63), p]
+    pts, valid = _fps_case(b, p, lengths, seed=p)
+    pts[1::2] = torch.round(pts[1::2] * 2) / 2
+    pts, valid = pts.to(dev), valid.to(dev)
+    got = masked_fps(pts, valid, 64)
+    want = masked_fps_plain(pts, valid, 64)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
 def test_fps_kernel_refuses_oversized_rows():
     dev = _card()
     pts = torch.zeros(1, 16385, 3, device=dev)
@@ -300,6 +320,37 @@ def test_cc_sweep_kernel_matches_plain(n_cap, n, radius, tile):
     fix_plain = radius_cc._cc_loop(prep, r * r, valid, tile=tile,
                                    sweep_fn=radius_cc.sweep_plain)
     assert torch.equal(fix, fix_plain) and bool((fix[~valid] == n_cap).all())
+
+
+@pytest.mark.parametrize("case", ["invalid_rows_labelled", "empty_ranges", "run_ends_at_hi"])
+def test_cc_sweep_kernel_edge_cases(case):
+    """K4 on labels the CC loop never feeds it, equal to its plain version:
+    every row, invalid ones included, labelled at random below N + 1 (valid
+    rows end inside a tile); no valid row, so every range is empty or has
+    hi below lo; all rows valid, with runs that end exactly at their
+    range's hi and ranges that end at the last row."""
+    dev = _card()
+    n_cap = 4096
+    n = {"invalid_rows_labelled": 2900, "empty_ranges": 0, "run_ends_at_hi": n_cap}[case]
+    coords, batch, valid, sem = (x.to(dev) for x in _cc_case(n_cap, n, seed=7, spread=1.0))
+    r = torch.tensor(0.12, dtype=torch.float32, device=dev)
+    prep = radius_cc._prep(coords, r, batch, valid, sem, 256, 1024)
+    assert bool(prep.use_window)
+    start, end, _, hi = radius_cc.key_runs(prep)
+    if case == "empty_ranges":
+        assert bool((prep.hi <= prep.lo).all())
+    elif case == "run_ends_at_hi":
+        assert bool(((end == hi) & (end > start)).any()) and int(prep.hi.max()) == n_cap
+    else:
+        assert bool((~valid).any()) and bool((end > start).any())
+    g = torch.Generator().manual_seed(3)
+    for lab in (torch.randint(0, n_cap + 1, (n_cap,), generator=g, dtype=torch.int32),
+                torch.randperm(n_cap, generator=g).to(torch.int32)):
+        lab = lab.to(dev)
+        got = radius_cc.sweep(lab, prep, r * r)
+        want = radius_cc.sweep_plain(lab, prep, r * r)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
 
 
 def test_semantic_radius_cc_on_card_matches_cpu():

@@ -6,6 +6,8 @@ order (ops/fma.py); with plain float32 sums about a fifth of the distances
 round differently and picks diverge. The CUDA kernel is held against the
 plain version on the card by tests/test_torch_cuda.py and chip_smoke.py."""
 
+import inspect
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -15,6 +17,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 from seggroup_tpu.ops import fps as jax_fps
 from seggroup_tpu.ops.pallas_fps import masked_fps_pallas
+from seggroup_tpu_torch.models.seggroup import SegGroupGNN
 from seggroup_tpu_torch.ops import cuda_fps
 from seggroup_tpu_torch.ops.fps import farthest_point_sampling, masked_fps
 
@@ -94,3 +97,15 @@ def test_cpu_tensors_take_the_plain_version():
     assert cuda_fps.launches == before
     with pytest.raises(ValueError):
         cuda_fps.masked_fps_cuda(torch.from_numpy(pts), torch.from_numpy(valid), k)
+
+
+@pytest.mark.parametrize("p,design", [(1, "warps"), (31, "warps"), (33, "warps"),
+                                      (1024, "warps"), (4096, "warps"), (4097, "block"),
+                                      (16384, "block")])
+def test_design_chosen_by_row_length(p, design):
+    """K1 serves rows of up to 4,096 candidates with its warps design (the
+    stage-1 call, at the model's cluster cap of 1,024, among them) and
+    longer rows with its block design."""
+    assert cuda_fps.variant(p) == design
+    cap = inspect.signature(SegGroupGNN).parameters["cluster_cap"].default
+    assert cap == 1024 and cuda_fps.variant(cap) == "warps"

@@ -259,3 +259,52 @@ def test_cuda_tensor_never_takes_the_plain_sweep(monkeypatch):
         monkeypatch.undo()
         T.cuda_cc.cc_sweep_cuda(lab, p.xyz, p.sem, p.key, p.lo, p.hi, p.offs,
                                 torch.tensor(0.01), 256)
+
+
+def _prepared(name):
+    """A prepared problem of this file's cases, or the dual problem (two
+    scenes with interleaved batch ids)."""
+    if name == "dual":
+        pts, shift, bids, ok, sem = _dual(np.random.default_rng(0), 1024)
+        coords, r = np.concatenate([pts, shift]), 0.12
+        batch = np.concatenate([bids * 2, bids * 2 + 1])
+        valid, sem = np.concatenate([ok, ok]), np.concatenate([sem, sem])
+    else:
+        coords, r, batch, valid, sem, _ = _case(name)
+    p = T._prep(torch.from_numpy(coords), torch.tensor(r, dtype=torch.float32),
+                torch.from_numpy(batch), torch.from_numpy(valid), torch.from_numpy(sem),
+                256, 1024)
+    assert bool(p.use_window)
+    return p, torch.tensor(r, dtype=torch.float32) ** 2
+
+
+@pytest.mark.parametrize("name", ["oracle", "dual", "large_key_space", "empty"])
+def test_key_runs_are_the_sweeps_candidates(name):
+    """The invariant K4 walks by (csrc/cc_sweep.cu): for every row and
+    group, the rows of its tile's range [lo, hi) that pass the key test are
+    exactly key_runs' run, [searchsorted(key, k + off - 1),
+    searchsorted(key, k + off + 1, right=True)) intersected with [lo, hi),
+    for invalid rows and in tiles where the valid rows end or that hold
+    none (hi below lo) too; and the least label over those runs that
+    passes the class and distance tests is sweep_plain's, with arbitrary
+    labels on every row, invalid ones included."""
+    p, r2 = _prepared(name)
+    n, key = p.key.shape[0], p.key.long()
+    start, end, lo, hi = T.key_runs(p)
+    rows = torch.arange(n)
+    labels = torch.from_numpy(np.random.default_rng(1).integers(0, n + 1, n).astype(np.int32))
+    best = labels.clone()
+    for g in range(9):
+        in_range = (rows[None, :] >= lo[:, g, None]) & (rows[None, :] < hi[:, g, None])
+        delta = key[None, :] - key[:, None]
+        passes = in_range & (delta >= p.offs[g] - 1) & (delta <= p.offs[g] + 1)
+        in_run = (rows[None, :] >= start[:, g, None]) & (rows[None, :] < end[:, g, None])
+        assert torch.equal(passes, in_run)
+        d2 = sqdist_fma(*(p.xyz[:, None, c] - p.xyz[None, :, c] for c in range(3)))
+        link = in_run & (p.sem[None, :] == p.sem[:, None]) & (d2 <= r2)
+        best = torch.minimum(best, torch.where(link, labels[None, :], n).min(dim=1).values)
+    if name == "empty":
+        assert bool((p.hi <= p.lo).all()) and bool((p.hi < p.lo).any())
+    else:
+        assert bool((p.key == T.PAD_KEY).any()) and int((end - start).clamp(min=0).sum()) > 0
+    assert torch.equal(best, T.sweep_plain(labels, p, r2))
