@@ -22,24 +22,36 @@ Phases, in order; any failure exits non-zero:
      sem_infer; K1's launch count is read around it;
   4. the same forward on a small scene at float32 on the card (kernel path)
      and on the CPU (plain path): integer outputs equal;
-  5. the stage-2 path at full width: Res16UNet34C semantic inference over 4
+  5. the stage-1 training path at full width: train steps of the bf16
+     model over the 4 bench-size scenes through cli.stage1_train.train_step
+     (Adam lr 0.001, the driver's defaults), 2 warm-up steps, 8 timed and
+     4 fenced into forward, backward and optimizer with the grouping,
+     cluster kNN and cluster-cloud shares; K1's launch count is read around
+     the timed steps (at least one per step); the loss and every gradient
+     finite, every parameter's gradient nonzero, the parameters and the
+     running statistics moved;
+  6. one stage-1 train step at float32 on a small scene with one injected
+     dropout mask on the card and on the CPU: integer outputs equal, the
+     loss, each gradient and the running statistics within tolerance; then
+     30 train steps on one small scene on the card, whose loss must fall;
+  7. the stage-2 path at full width: Res16UNet34C semantic inference over 4
      bench-size scenes voxelised at 2 cm into 2^17 voxels, through
      cli.stage2_test_semantic.test_semantic_minkunet; K2's launch count is
      read around it;
-  6. MinkUNet on a small input on the card (K2) and on the CPU (plain):
+  8. MinkUNet on a small input on the card (K2) and on the CPU (plain):
      rulebooks and downsample maps equal, logits within tolerance;
-  7. the stage-2 training path at full width: Res16UNet34C train steps at
+  9. the stage-2 training path at full width: Res16UNet34C train steps at
      2^17 voxels, batch size 8, SGD lr 0.1 PolyLR, augmented batches of 8
      bench-size scenes built by the host prefetcher, through
      cli.stage2_train_minkunet.train_step; K2's and K3's launch counts are
      read around the timed steps (47 K3 and 93 K2 launches per step);
-  8. Res16UNet14A on the card (K2, K3) and on the CPU (plain): one train
+ 10. Res16UNet14A on the card (K2, K3) and on the CPU (plain): one train
      step at 2^14 and at 2,048 rows (loss, gradients and running
      statistics within tolerance) and one backward through the
      running-statistics forward at 2^14 rows (each gradient tensor held on
      its own); then 30 steps on one fixed batch on the card, whose loss
      must fall;
-  9. K4, the radius-graph connected-components sweep, against its plain
+ 11. K4, the radius-graph connected-components sweep, against its plain
      version (labels exactly equal after one sweep and at the fixpoint,
      bit-equal across two runs) on the doubled point set of a full-width
      PointGroup forward, on a bench scene clustered on its true labels, and
@@ -48,16 +60,16 @@ Phases, in order; any failure exits non-zero:
      `semantic_radius_cc` on the card against the CPU; K2
      against its plain version at every PointGroup (Cin, Cout), K = 27 and
      K = 1;
- 10. the PointGroup path at full width: instance-segmentation inference
+ 12. the PointGroup path at full width: instance-segmentation inference
      over 4 bench-size scenes at the evaluation CLI's defaults (m=16,
      2^17 points, 2^16 voxels, radius 0.03) through
      cli.stage2_test_pointgroup.test_instance_pointgroup; K2's and K4's
      launch counts are read around it, at least one K4 launch per forward;
      then the clustering and the ScoreNet on the true labels of a scene;
- 11. PointGroup at a small size on the card and on the CPU: heads within
+ 13. PointGroup at a small size on the card and on the CPU: heads within
      tolerance, clustering exactly equal at shared heads, scores within
      tolerance at a shared voxel map;
- 12. a `kernels` JSON line, the card line, then the device line as the last.
+ 14. a `kernels` JSON line, the card line, then the device line as the last.
 
 Needs one card. Imports nothing of JAX or of the JAX package."""
 
@@ -118,6 +130,11 @@ GRAD_REL_L2, HEAD_GRAD_RTOL = 0.3, 2e-2
 # gradient scores 6 or more, one in the stem's weight gradient about 90)
 GRAD_OVER_BF16, GRAD_FLOOR = 1.5, 1e-2
 OVERFIT_STEPS = 30
+# stage-1 training: the training driver's defaults (cli/stage1_train.py)
+S1_LR, S1_WARMUP, S1_STEPS, S1_FENCED = 0.001, 2, 8, 4
+# stage-1 card vs CPU train step at float32: the bounds
+# tests/test_torch_stage1_train.py holds the port to against JAX
+S1_LOSS_RTOL, S1_GRAD_RTOL, S1_STAT_TOL = 1e-5, 1e-4, 1e-5
 # MinkUNet card vs CPU: the tolerance tests/test_torch_minkunet.py holds the
 # port to against JAX (bf16 products, float32 sums in another order)
 LOGIT_ATOL, LOGIT_RTOL, ARGMAX_AGREE = 2e-4, 1e-3, 0.99
@@ -362,6 +379,157 @@ def card_vs_cpu(torch, dev):
                                      f"{int((x != y).sum())} entries")
         print(f"card vs CPU, {mode} at N=2048 float32: integer fields equal, "
               f"float fields within 1e-5", flush=True)
+
+
+def run_stage1_train_path(torch, dev, card):
+    """Stage-1 training at full width: the bf16 model at the driver's
+    defaults over the 4 bench-size scenes, one scene a step through
+    cli.stage1_train.train_step. Returns K1's launches in the timed steps."""
+    from seggroup_tpu_torch.cli.stage1_train import train_step
+    from seggroup_tpu_torch.data.synthetic import BENCH_SCENE, make_synthetic_scene
+    from seggroup_tpu_torch.models.seggroup import SegGroupGNN
+    from seggroup_tpu_torch.ops import cuda_fps
+    from seggroup_tpu_torch.solvers import make_optimizer, make_schedule
+
+    scenes = [make_synthetic_scene(seed=i, **BENCH_SCENE).to(dev) for i in range(N_SCENES)]
+    model = SegGroupGNN(cluster_cap=1024, knn_window=8192, knn_k=20, seed=0, device=dev)
+    optimizer, _ = make_optimizer("Adam", model.parameters(), make_schedule("constant", S1_LR))
+    gen = torch.Generator(device=dev).manual_seed(3)
+    before = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    losses, sizes = [], []
+
+    def step(i, phases=None):
+        loss, metrics = train_step(model, optimizer, scenes[i % N_SCENES], generator=gen,
+                                   phase_seconds=phases)
+        losses.append(loss)
+        sizes.append((metrics["max_segment_size"], metrics["max_cluster_size"]))
+
+    t0 = time.perf_counter()
+    for i in range(S1_WARMUP):
+        step(i)
+    torch.cuda.synchronize()
+    print(f"stage-1 training warm-up, {S1_WARMUP} steps: {time.perf_counter() - t0:.3f} s",
+          flush=True)
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    cuda_fps.launches = 0
+    t0 = time.perf_counter()
+    for i in range(S1_STEPS):
+        step(i)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = cuda_fps.launches
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+
+    phases: dict[str, float] = {}
+    t0 = time.perf_counter()
+    for i in range(S1_FENCED):
+        step(i, phases)
+    fenced = (time.perf_counter() - t0) / S1_FENCED
+
+    if launches < S1_STEPS:
+        raise AssertionError(f"K1 launched {launches} times in {S1_STEPS} train steps")
+    loss_values = [float(x) for x in losses]
+    if not np.isfinite(loss_values).all():
+        raise AssertionError(f"non-finite stage-1 training loss: {loss_values}")
+    for name, p in model.named_parameters():
+        if p.grad is None or not bool(torch.isfinite(p.grad).all()):
+            raise AssertionError(f"gradient of {name} missing or not finite")
+        if float(p.grad.abs().max()) == 0.0:
+            raise AssertionError(f"gradient of {name} is zero")
+    unmoved = [k for k, v in model.state_dict().items() if torch.equal(v, before[k])]
+    if unmoved:
+        raise AssertionError(f"parameters or running statistics did not move: {unmoved}")
+    # the training driver runs at fixed budgets, as the JAX one does: a
+    # merged cluster over knn_window gets the window-truncated kNN there
+    mseg = max(int(a) for a, _ in sizes)
+    mclu = max(int(b) for _, b in sizes)
+    over = sum(int(b) > model.knn_window for _, b in sizes)
+    n = BENCH_SCENE["num_points"]
+    per = {k: v / S1_FENCED for k, v in phases.items()}
+    split = ", ".join(f"{k} {per[k]:.4f} s" for k in ("forward", "backward", "optimizer"))
+    shares = ", ".join(f"{k} {per.get(k, 0.0):.4f} s"
+                       for k in ("grouping", "cluster_knn", "cluster_pointclouds"))
+    print(f"stage-1 training at {n} points, {BENCH_SCENE['num_slots']} slots, "
+          f"{BENCH_SCENE['num_edges']} edges (bf16), Adam lr {S1_LR}, one of {N_SCENES} "
+          f"bench-size scenes a step: {wall / S1_STEPS:.4f} s/step over {S1_STEPS} steps "
+          f"= {n * S1_STEPS / wall:.1f} points/s; fenced split per step ({fenced:.4f} "
+          f"s/step): {split}; within the forward: {shares}; peak {peak_gib:.2f} GiB; "
+          f"largest segment {mseg} (cluster_cap {model.cluster_cap}), largest cluster "
+          f"{mclu} (knn_window {model.knn_window}; over it in {over} of {len(sizes)} "
+          f"steps); K1 launches {launches} in "
+          f"{S1_STEPS} steps; losses {[round(x, 4) for x in loss_values]}; on {card}",
+          flush=True)
+    return launches
+
+
+def stage1_train_card_vs_cpu(torch, dev, card):
+    """One train forward and backward at float32 on a small scene with one
+    injected dropout mask on the card and on the CPU, then 30 train steps
+    of the bf16 model on one small scene on the card: the mean of the last
+    5 losses must be below the mean of the first 5."""
+    from seggroup_tpu_torch.cli.stage1_train import train_step
+    from seggroup_tpu_torch.data.synthetic import make_synthetic_scene
+    from seggroup_tpu_torch.models.seggroup import SegGroupGNN
+    from seggroup_tpu_torch.solvers import make_optimizer, make_schedule
+
+    scene = make_synthetic_scene(seed=3, **SMALL)
+    kw = dict(cluster_cap=2048, knn_window=2048, compute_dtype=torch.float32, seed=1)
+    keep = torch.rand((128, 128), generator=torch.Generator().manual_seed(11)) < 0.5
+    runs = []
+    for d in (dev, torch.device("cpu")):
+        model = SegGroupGNN(device=d, **kw)
+        out = model(scene.to(d), mode="train", dropout_keep=keep.to(d))
+        loss = out.loss_sum / torch.clamp(out.loss_count, min=1.0)
+        loss.backward()
+        runs.append((model, out, loss.detach()))
+    (m_a, a, loss_a), (m_b, b, loss_b) = runs
+    for name in a._fields:
+        x, y = getattr(a, name).detach().cpu(), getattr(b, name).detach()
+        if x.dtype.is_floating_point:
+            if not torch.allclose(x, y, rtol=S1_LOSS_RTOL, atol=1e-5):
+                raise AssertionError(f"train {name}: card vs CPU differ by "
+                                     f"{float((x - y).abs().max())}")
+        elif not torch.equal(x, y):
+            raise AssertionError(f"train {name}: card vs CPU differ at "
+                                 f"{int((x != y).sum())} entries")
+    loss_err = abs(float(loss_a) - float(loss_b)) / abs(float(loss_b))
+    if loss_err > S1_LOSS_RTOL:
+        raise AssertionError(f"train loss: card {float(loss_a)} vs CPU {float(loss_b)}")
+    grad_err = 0.0
+    cpu_params = dict(m_b.named_parameters())
+    for name, p in m_a.named_parameters():
+        want = cpu_params[name].grad
+        err = float((p.grad.cpu() - want).abs().max()) / float(want.abs().max())
+        if not err <= S1_GRAD_RTOL:
+            raise AssertionError(f"gradient of {name}: card vs CPU differ by {err:.3e} of "
+                                 f"its max")
+        grad_err = max(grad_err, err)
+    cpu_buffers = dict(m_b.named_buffers())
+    stat_err = 0.0
+    for name, v in m_a.named_buffers():
+        err = float((v.cpu() - cpu_buffers[name]).abs().max())
+        if not torch.allclose(v.cpu(), cpu_buffers[name], rtol=S1_STAT_TOL, atol=S1_STAT_TOL):
+            raise AssertionError(f"running statistic {name}: card vs CPU differ by {err}")
+        stat_err = max(stat_err, err)
+    print(f"card vs CPU, stage-1 train step at N={SMALL['num_points']} float32 with one "
+          f"injected dropout mask: integer fields equal, loss {float(loss_a):.6f} (relative "
+          f"error {loss_err:.2e}), gradients within {grad_err:.2e} of their max, running "
+          f"statistics within {stat_err:.2e}", flush=True)
+
+    model = SegGroupGNN(cluster_cap=2048, knn_window=2048, seed=2, device=dev)
+    optimizer, _ = make_optimizer("Adam", model.parameters(), make_schedule("constant", S1_LR))
+    gen = torch.Generator(device=dev).manual_seed(4)
+    small = scene.to(dev)
+    losses = [float(train_step(model, optimizer, small, generator=gen)[0])
+              for _ in range(OVERFIT_STEPS)]
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    line = (f"stage-1 overfit, bf16 on one scene of {SMALL['num_points']} points, "
+            f"{OVERFIT_STEPS} Adam steps: mean loss of the first 5 {first:.4f}, of the last "
+            f"5 {last:.4f}; on {card}")
+    if not (np.isfinite(losses).all() and last < first):
+        raise AssertionError(f"{line}; losses {losses}")
+    print(line, flush=True)
 
 
 def k2_sites(torch, dev, m: int, kernel: int = 3):
@@ -1533,6 +1701,8 @@ def main() -> int:
     k3 = check_subm_dw(torch, dev, card, bench)
     launches = run_main_path(torch, dev, card)
     card_vs_cpu(torch, dev)
+    train_fps = run_stage1_train_path(torch, dev, card)
+    stage1_train_card_vs_cpu(torch, dev, card)
     inference_k2 = run_stage2_path(torch, dev, card)
     minkunet_card_vs_cpu(torch, dev)
     train = run_train_path(torch, dev, card)
@@ -1547,7 +1717,11 @@ def main() -> int:
     pointgroup = run_pointgroup_path(torch, dev, card, pg_model)
     pointgroup_card_vs_cpu(torch, dev)
 
-    k1["launches"] = launches["masked_fps"]
+    # this slice's path is stage-1 training; the inference forwards' count
+    # stands beside it
+    k1["launches"] = train_fps
+    k1["launches_by_path"] = {"stage1_inference": launches["masked_fps"],
+                              "stage1_training": train_fps}
     # the training path runs both K2 and K3; K2's counts on the inference
     # paths stand beside it
     k2["launches"] = train["subm_conv"]

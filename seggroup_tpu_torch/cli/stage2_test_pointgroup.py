@@ -12,8 +12,7 @@ is the model's state dict); without one the model runs on random weights
 from seed 0, with a warning, as the JAX CLI does. With `--dump_dir` it
 writes the benchmark's layout: instance/<scene>.txt (one line per kept
 proposal), instance/predicted_masks/<scene>_<k>.txt (0/1 per point) and
-semantic/<scene>.txt (nyu40 ids). Not ported: prepared ScanNet scenes (they
-wait for data/scannet.py)."""
+semantic/<scene>.txt (nyu40 ids)."""
 
 from __future__ import annotations
 
@@ -160,7 +159,6 @@ def main(argv: Sequence[str] | None = None):
     p.add_argument("--npoint_thresh", type=int, default=100)
     p.add_argument("--nms_thresh", type=float, default=0.3)
     p.add_argument("--m", type=int, default=16)
-    p.add_argument("--device", type=str, default="cuda")
     p.add_argument("--dump_dir", type=str, default=None,
                    help="write ScanNet-benchmark instance outputs: per scene a "
                         "<scene>.txt proposal list + predicted_masks/ 0/1 mask files, "

@@ -17,7 +17,7 @@ on the card and is read every 10 iterations.
 
 Runs on the card unless `--device cpu`. Not ported: `--plan_mode` (the port
 builds no window plans), data parallelism (`--num_devices` > 1 raises; it
-waits for the port of parallel/dp.py), prepared ScanNet scenes."""
+waits for the port of parallel/dp.py)."""
 
 from __future__ import annotations
 
@@ -125,7 +125,6 @@ def main(argv: Sequence[str] | None = None):
     p.add_argument("--weights", type=str, default=None,
                    help="initialize the model from this checkpoint dir, keeping "
                         "fresh values where names or shapes differ")
-    p.add_argument("--device", type=str, default="cuda")
     args = p.parse_args(argv)
 
     dev = resolve_device(args.device)

@@ -44,13 +44,17 @@ def export_labels_txt(out_dir: str, stem: str, labels: np.ndarray) -> None:
 
 
 def export_scene(results_root: str, scene_name: str, stage: str,
-                 out: Stage1Output) -> None:
+                 out: Stage1Output, extras: dict | None = None) -> None:
     """Write final and per-layer label files of one scene under
-    results_root/<scene_name>/<stage>/ (reference model.py:688-691)."""
+    results_root/<scene_name>/<stage>/ (reference model.py:688-691). A
+    prepared scene's `extras["unmap"]` (mesh vertex -> resampled point)
+    carries the labels back to the mesh vertices."""
     out_dir = os.path.join(results_root, scene_name, stage)
+    unmap = (extras or {}).get("unmap")
 
     def host(t):
-        return t.cpu().numpy()
+        arr = t.cpu().numpy()
+        return arr if unmap is None else arr[unmap]
 
     export_labels_txt(out_dir, "final.sem", host(out.final_sem))
     export_labels_txt(out_dir, "final.ins", host(out.final_ins))

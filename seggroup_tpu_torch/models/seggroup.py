@@ -1,15 +1,19 @@
-"""Stage-1 SegGroup GNN inference (seggroup_tpu/models/seggroup.py).
+"""Stage-1 SegGroup GNN (seggroup_tpu/models/seggroup.py).
 
 The same forward as the JAX module over the same fixed-shape padded
 tensors: DGCNN edge-conv encoders as batched Linear layers over kNN
-gathers, mask-aware BatchNorm with running statistics, one masked FPS over
-every cluster at once (kernel K1 on the card), and the sequential grouping
-engine of ops.grouping.
+gathers, mask-aware BatchNorm, one masked FPS over every cluster at once
+(kernel K1 on the card), and the sequential grouping engine of
+ops.grouping.
 
-This slice runs the `ins_infer` and `sem_infer` modes. Training (`train`
-mode, batch statistics, dropout, the classifier loss), the parallel-rounds
-grouping, the approximate kNN and point sharding are not ported; asking for
-them raises NotImplementedError.
+Three modes, as the JAX module's: `train` (the full grouping, BatchNorm
+batch statistics that update the running ones, classifier dropout and the
+label-smoothed loss, with autograd), `ins_infer` and `sem_infer` (running
+statistics, no autograd). Gradients flow where JAX's do: through the
+cluster-feature max-pools, the similarity matrix and the GCNs, not through
+the distances that decide the grouping. The parallel-rounds grouping, the
+approximate kNN and point sharding are not ported; asking for them raises
+NotImplementedError.
 
 Weak-label conventions: weak ins/sem are 0-based with -1 = unlabeled;
 exports add +1 so 0 means unannotated."""
@@ -44,8 +48,14 @@ _PAD_CLUSTER = 0x3FFFFFFF
 
 
 class MaskedBatchNorm(nn.Module):
-    """BatchNorm over the leading axes, in inference: the running statistics
-    `mean`/`var` normalize, `scale`/`bias` map (the flax names)."""
+    """BatchNorm over the leading axes with a validity mask, in flax's
+    convention (the JAX MaskedBatchNorm): `scale`/`bias` map, `mean`/`var`
+    are the running statistics. In training the batch statistics are taken
+    in float32 over the rows where `mask` holds (count at least 1, biased
+    variance), normalize, and move the running ones as
+    running = momentum * running + (1 - momentum) * batch."""
+
+    momentum = 0.9
 
     def __init__(self, c: int, epsilon: float = 1e-5):
         super().__init__()
@@ -55,14 +65,28 @@ class MaskedBatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(c))
         self.register_buffer("var", torch.ones(c))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.to(torch.float32)  # normalization in f32
-        y = (x - self.mean) * torch.rsqrt(self.var + self.epsilon)
+    def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None,
+                train: bool = False) -> torch.Tensor:
+        x = x.to(torch.float32)  # statistics and normalization in f32
+        if train:
+            m = mask.reshape(mask.shape + (1,) * (x.ndim - mask.ndim)).to(x.dtype)
+            axes = tuple(range(x.ndim - 1))
+            cnt = torch.clamp(m.sum(), min=1.0)
+            mean = (x * m).sum(dim=axes) / cnt
+            var = (torch.square(x - mean) * m).sum(dim=axes) / cnt
+            with torch.no_grad():
+                self.mean.copy_(self.momentum * self.mean + (1 - self.momentum) * mean)
+                self.var.copy_(self.momentum * self.var + (1 - self.momentum) * var)
+        else:
+            mean, var = self.mean, self.var
+        y = (x - mean) * torch.rsqrt(var + self.epsilon)
         return y * self.scale + self.bias
 
 
 def _leaky(x: torch.Tensor) -> torch.Tensor:
-    return F.leaky_relu(x, negative_slope=0.2)
+    # flax's leaky_relu: the gradient at exactly 0 is 1 (F.leaky_relu's is
+    # the slope)
+    return torch.where(x >= 0, x, 0.2 * x)
 
 
 class MLP1(nn.Module):
@@ -77,15 +101,17 @@ class MLP1(nn.Module):
         self.conv1 = nn.Linear(6, 64, bias=False)
         self.bn1 = MaskedBatchNorm(64)
 
-    def forward(self, clouds: torch.Tensor, slot_valid: torch.Tensor) -> torch.Tensor:
-        s = clouds.shape[0]
+    def forward(self, clouds: torch.Tensor, slot_valid: torch.Tensor,
+                train: bool = False) -> torch.Tensor:
+        s, p = clouds.shape[:2]
         idx = knn_brute(clouds[..., :3], self.k)  # (S, P, k) self included
         rows = torch.arange(s, device=clouds.device)[:, None, None]
         nbr = clouds[rows, idx]  # (S, P, k, 6)
         xyz = nbr[..., :3]
         xyz = (xyz - xyz.mean(dim=2, keepdim=True)) * 10.0
         feat = torch.cat([xyz, nbr[..., 3:]], dim=-1)
-        h = _leaky(self.bn1(self.conv1(feat)))
+        mask = slot_valid[:, None, None].expand(s, p, self.k)
+        h = _leaky(self.bn1(self.conv1(feat), mask, train))
         h = h.amax(dim=2)  # over k -> (S, P, 64)
         out = torch.cat([h.amax(dim=1), h.mean(dim=1)], dim=-1)  # (S, 128)
         return torch.where(slot_valid[:, None], out, 0.0)
@@ -107,17 +133,18 @@ class EdgeConvBlock(nn.Module):
             self.conv2 = nn.Linear(64, 64, bias=False)
             self.bn2 = MaskedBatchNorm(64)
 
-    def forward(self, x: torch.Tensor, idx: torch.Tensor,
-                point_valid: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, idx: torch.Tensor, point_valid: torch.Tensor,
+                train: bool = False) -> torch.Tensor:
         xb = x.to(self.dtype)
         nbr = xb[idx]  # (N, k, 9)
         self_f = xb[:, None, :].expand_as(nbr)
         feat = torch.cat([nbr - self_f, self_f], dim=-1)  # (N, k, 18)
+        mask = point_valid[:, None].expand(idx.shape)
         h = F.linear(feat, self.conv1.weight.to(self.dtype))
-        h = _leaky(self.bn1(h)).to(self.dtype)
+        h = _leaky(self.bn1(h, mask, train)).to(self.dtype)
         if self.layers == 2:
             h = F.linear(h, self.conv2.weight.to(self.dtype))
-            h = _leaky(self.bn2(h)).to(self.dtype)
+            h = _leaky(self.bn2(h, mask, train)).to(self.dtype)
         h = h.amax(dim=1).to(torch.float32)  # over k -> (N, 64)
         return torch.where(point_valid[:, None], h, 0.0)
 
@@ -135,8 +162,14 @@ class GCN(nn.Module):
 
 
 class Classifier(nn.Module):
-    """256 -> 128 (BN, LeakyReLU, dropout .5) -> 40, in inference. Ported so
-    the weights carry across; the inference modes do not call it."""
+    """256 -> 128 (BN over the `valid` rows, LeakyReLU, dropout .5) -> 40.
+
+    In training, dropout keeps a unit where `dropout_keep` holds, or else
+    where a uniform draw from `generator` (on x's device) falls below the
+    keep probability, and scales the kept ones by its inverse, as flax's
+    Dropout does."""
+
+    rate = 0.5
 
     def __init__(self):
         super().__init__()
@@ -144,8 +177,28 @@ class Classifier(nn.Module):
         self.bn1 = MaskedBatchNorm(128)
         self.linear2 = nn.Linear(128, NUM_CLASSES)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.linear2(_leaky(self.bn1(self.linear1(x))))
+    def forward(self, x: torch.Tensor, valid: torch.Tensor, train: bool = False,
+                dropout_keep: torch.Tensor | None = None,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        h = _leaky(self.bn1(self.linear1(x), valid, train))
+        if train:
+            keep_prob = 1.0 - self.rate
+            if dropout_keep is None:
+                dropout_keep = torch.rand(h.shape, generator=generator,
+                                          device=h.device) < keep_prob
+            h = torch.where(dropout_keep, h / keep_prob, 0.0)
+        return self.linear2(h)
+
+
+def smoothed_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                           valid: torch.Tensor, eps: float = 0.2) -> torch.Tensor:
+    """Label-smoothed cross entropy summed over the valid rows (reference
+    seggroup/util.py:12-29)."""
+    n_class = logits.shape[-1]
+    one_hot = F.one_hot(labels.long(), n_class).to(logits.dtype)
+    soft = one_hot * (1 - eps) + (1 - one_hot) * eps / (n_class - 1)
+    per_row = -torch.sum(soft * F.log_softmax(logits, dim=-1), dim=-1)
+    return torch.where(valid, per_row, 0.0).sum()
 
 
 # ---------------------------------------------------------------------------
@@ -240,9 +293,11 @@ def _lecun_normal_(weight: torch.Tensor, gen: torch.Generator) -> None:
 
 
 class SegGroupGNN(nn.Module):
-    """The stage-1 per-scene pipeline. `mode` selects 'sem_infer' (stop after
-    layer 2, structural threshold 3 instead of 6) or 'ins_infer' (full
-    grouping, no classifier).
+    """The stage-1 per-scene pipeline. `mode` selects 'train' (full grouping
+    and the classifier loss over up to `max_instances` weak instances, with
+    batch statistics and autograd), 'sem_infer' (stop after layer 2,
+    structural threshold 3 instead of 6) or 'ins_infer' (full grouping, no
+    classifier).
 
     Weights come from `seed` through a torch.Generator (flax's default
     initializers), or from a JAX checkpoint through models.convert. The
@@ -262,6 +317,7 @@ class SegGroupGNN(nn.Module):
         knn_small_window: int | None = None,
         mlp1_points: int = 64,
         cluster_cap: int = 1024,
+        max_instances: int = 128,
         compute_dtype: torch.dtype = torch.bfloat16,
         shard_axis: str | None = None,
         seed: int = 0,
@@ -284,6 +340,7 @@ class SegGroupGNN(nn.Module):
         self.knn_small_window = knn_small_window
         self.mlp1_points = mlp1_points
         self.cluster_cap = cluster_cap
+        self.max_instances = max_instances
 
         self.mlp_1 = MLP1()
         self.mlp_2 = EdgeConvBlock(layers=1, dtype=compute_dtype)
@@ -304,18 +361,27 @@ class SegGroupGNN(nn.Module):
     def device(self) -> torch.device:
         return self.gcn_2.fc.weight.device
 
-    @torch.no_grad()
     def forward(self, scene: Scene, mode: str = "ins_infer",
-                phase_seconds: dict | None = None) -> Stage1Output:
-        """One scene's forward. With `phase_seconds`, the card is
+                phase_seconds: dict | None = None,
+                dropout_keep: torch.Tensor | None = None,
+                generator: torch.Generator | None = None) -> Stage1Output:
+        """One scene's forward; in `train` mode it builds the autograd graph
+        of the loss, elsewhere none. With `phase_seconds`, the card is
         synchronised around the grouping loops, the cluster kNN and the
         cluster clouds, and their wall seconds are added to the dict under
-        "grouping", "cluster_knn" and "cluster_pointclouds"."""
-        if mode not in ("ins_infer", "sem_infer"):
-            raise NotImplementedError(f"mode={mode!r} is not ported")
+        "grouping", "cluster_knn" and "cluster_pointclouds". `dropout_keep`
+        ((max_instances, 128) bool) or `generator` decide the classifier's
+        dropout in `train` mode (Classifier)."""
+        if mode not in ("train", "ins_infer", "sem_infer"):
+            raise ValueError(f"unknown mode {mode!r}")
         if scene.points.device != self.device:
             raise ValueError(f"scene on {scene.points.device}, model on {self.device}")
-        phase = PhaseClock(self.device, phase_seconds)
+        with torch.set_grad_enabled(mode == "train"):
+            return self._forward(scene, mode, PhaseClock(self.device, phase_seconds),
+                                 dropout_keep, generator)
+
+    def _forward(self, scene, mode, phase, dropout_keep, generator) -> Stage1Output:
+        train = mode == "train"
         s = scene.num_slots
         pts = scene.points
         pt_valid = scene.point2seg < s
@@ -339,8 +405,9 @@ class SegGroupGNN(nn.Module):
         with phase("cluster_pointclouds"):
             clouds, act1 = cluster_pointclouds(
                 pts, roots_l1, s, p_out=self.mlp1_points, cap=self.cluster_cap)
-        feat1 = self.mlp_1(clouds, act1)  # (S, 128)
-        d1 = gr.edge_distances(feat1, g, edges)
+        feat1 = self.mlp_1(clouds, act1, train)  # (S, 128)
+        # the grouping's distances carry no gradient (JAX: stop_gradient)
+        d1 = gr.edge_distances(feat1.detach(), g, edges)
         th1 = self.th_structural_sem_infer if mode == "sem_infer" else self.th_structural
         with phase("grouping"):
             g, _ = gr.group_nearby_clusters_sequential(g, edges, ev, d1, th1)
@@ -365,7 +432,7 @@ class SegGroupGNN(nn.Module):
         # --- semantic grouping layer 1 (model.py:786-824)
         feat2, g, edges, ev, act2 = self._semantic_layer(
             self.mlp_2, self.gcn_2, feat2, g, edges, ev, pts, roots_l2, pt_valid,
-            phase)
+            phase, train)
         roots_l3 = roots_of(g)
         sem_l3, ins_l3 = self._export_labels(g, roots_l3, pt_valid, s)
         max_cluster = torch.maximum(cl2, largest(roots_l3))
@@ -374,12 +441,13 @@ class SegGroupGNN(nn.Module):
         # --- semantic grouping layer 2 (model.py:827-856)
         feat3, g, edges, ev, act3 = self._semantic_layer(
             self.mlp_3, self.gcn_3, feat3, g, edges, ev, pts, roots_l3, pt_valid,
-            phase)
+            phase, train)
         roots_l4 = roots_of(g)
         sem_l4, ins_l4 = self._export_labels(g, roots_l4, pt_valid, s)
         feat4 = gr.aggregate_cluster_feature(feat3, g, act3)
 
         # --- final clustering: absorb unlabeled (model.py:868-891)
+        act4 = gr.active_mask(g)
         with phase("grouping"):
             g, _, edges, ev = gr.group_unlabeled_clusters(
                 g, feat4, edges, ev, pts[:, :3], scene.point2seg)
@@ -389,8 +457,14 @@ class SegGroupGNN(nn.Module):
         iou_sem, iou_ins, acc = evaluate_labels(
             final_sem, final_ins, scene.real_sem, scene.real_ins, pt_valid)
         zero = torch.zeros((), device=self.device)
+        loss_sum = loss_count = zero
+        if train:
+            # the final grouping's features, re-aggregated with a gradient
+            # (the absorption loop reads detached ones)
+            feat5 = gr.aggregate_cluster_feature(feat4, g, act4)
+            loss_sum, loss_count = self._classifier_loss(feat5, g, dropout_keep, generator)
         return Stage1Output(
-            zero, zero, iou_sem, iou_ins, acc,
+            loss_sum, loss_count, iou_sem, iou_ins, acc,
             torch.stack([roots_l1, roots_l2, roots_l3, roots_l4]),
             final_root, final_sem, final_ins, sem_l2, ins_l2,
             max_seg, max_cluster,
@@ -398,8 +472,26 @@ class SegGroupGNN(nn.Module):
             torch.stack([ins_l1, ins_l2, ins_l3, ins_l4]),
         )
 
+    def _classifier_loss(self, feat5, g, dropout_keep, generator):
+        """(loss_sum, loss_count) of the classifier over per-instance
+        max-pooled features (model.py:900-929): the live roots' features and
+        weak semantic labels pooled by weak instance id below
+        max_instances."""
+        i_max = self.max_instances
+        act5 = gr.active_mask(g)
+        ins_ids = torch.where(act5, g.ins_label, -1)
+        ins_ids = torch.where((ins_ids >= 0) & (ins_ids < i_max), ins_ids, i_max)
+        feat6 = segment_max(feat5, ins_ids, i_max)  # (I, 256)
+        sem_gt = segment_max(torch.where(act5, g.sem_label, -1), ins_ids, i_max,
+                             fill_value=-1)
+        ins_present = segment_sum(act5.to(torch.int32), ins_ids, i_max) > 0
+        inst_valid = ins_present & (sem_gt >= 0)
+        logits = self.classifier(feat6, inst_valid, True, dropout_keep, generator)
+        loss_sum = smoothed_cross_entropy(logits, torch.clamp(sem_gt, min=0), inst_valid)
+        return loss_sum, inst_valid.to(torch.float32).sum()
+
     def _semantic_layer(self, mlp, gcn, feat_in, g, edges, ev, pts, roots,
-                        pt_valid, phase):
+                        pt_valid, phase, train):
         s = g.num_slots
         with phase("cluster_knn"):
             knn_idx = cluster_knn(
@@ -409,14 +501,14 @@ class SegGroupGNN(nn.Module):
         center = segment_mean(pts[:, :3], roots, s)  # (S, 3)
         centered = pts[:, :3] - center[torch.clamp(roots, max=s - 1)]
         data9 = torch.cat([pts, centered], dim=-1)  # (N, 9)
-        point_feat = mlp(data9, knn_idx, pt_valid)  # (N, 64)
+        point_feat = mlp(data9, knn_idx, pt_valid, train)  # (N, 64)
         pooled = segment_max(point_feat, torch.where(pt_valid, roots, s), s)
         feat = torch.cat([feat_in, pooled], dim=-1)
 
         sims = gr.edge_similarities(feat, g, edges, alpha=self.gcn_alpha)
         feat = gcn(feat, gr.build_similarity_matrix(sims, edges, ev, s))
 
-        d = gr.edge_distances(feat, g, edges)
+        d = gr.edge_distances(feat.detach(), g, edges)
         act_before = gr.active_mask(g)
         with phase("grouping"):
             g, _ = gr.group_nearby_clusters_sequential(g, edges, ev, d,

@@ -37,12 +37,13 @@ def make_schedule(name: str, base_lr: float, *, max_iter: int = 60000) -> Schedu
     raise ValueError(name)
 
 
-def make_optimizer(name: str, params: Iterable[torch.nn.Parameter], schedule: Schedule
+def make_optimizer(name: str, params: Iterable[torch.nn.Parameter], schedule: Schedule,
+                   momentum: float = SGD_MOMENTUM
                    ) -> tuple[torch.optim.Optimizer, "ScheduledLR"]:
     """(optimizer, its ScheduledLR); the optimizer starts at schedule(0)."""
     lr = float(schedule(0))
     if name == "SGD":
-        opt = torch.optim.SGD(params, lr=lr, momentum=SGD_MOMENTUM, weight_decay=WEIGHT_DECAY)
+        opt = torch.optim.SGD(params, lr=lr, momentum=momentum, weight_decay=WEIGHT_DECAY)
     elif name == "Adam":
         opt = torch.optim.Adam(params, lr=lr, betas=ADAM_BETAS, weight_decay=WEIGHT_DECAY)
     else:

@@ -261,8 +261,3 @@ def test_evaluate_labels_matches_jax():
 def test_unported_options_raise(kw):
     with pytest.raises(NotImplementedError):
         T.SegGroupGNN(device="cpu", **kw)
-
-
-def test_train_mode_raises(port_model):
-    with pytest.raises(NotImplementedError):
-        port_model(make_synthetic_scene(seed=0, **SCENE).to("cpu"), mode="train")

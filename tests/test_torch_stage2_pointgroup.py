@@ -127,6 +127,18 @@ def test_hand_set_heads_give_perfect_instances(tmp_path):
     assert sorted(int(np.bincount(ins[m == 1]).argmax()) for m in masks) == [1, 2, 3, 4]
 
 
-def test_synthetic_only():
-    with pytest.raises(NotImplementedError, match="synthetic"):
-        pg_cli.main(SMALL)
+def test_synthetic_only(tmp_path, monkeypatch):
+    """Without --synthetic the driver reads prepared npz scenes under
+    <data_root>/<label_style> (data/scannet.py); it refuses them no more."""
+    from seggroup_tpu_torch.data.scannet import SCENE_KEYS, save_scene_npz
+
+    root = tmp_path / "prepared" / "manual"
+    root.mkdir(parents=True)
+    for i in range(2):
+        scene = make_synthetic_scene(seed=i, num_points=2500)
+        save_scene_npz(str(root / f"scene000{i}_00.npz"), dict(zip(SCENE_KEYS, scene)))
+    monkeypatch.chdir(tmp_path)
+    aps, _ = pg_cli.main(SMALL + ["--data_root", str(tmp_path / "prepared")])
+    assert aps.shape[0] == 18  # one row per evaluated class
+    log = (tmp_path / "checkpoints" / "exp" / "pg_test.log").read_text()
+    assert "AP " in log

@@ -90,11 +90,22 @@ def test_weights_initialise_a_new_run(trained, monkeypatch):
 
 
 def test_driver_refuses_what_is_not_ported(tmp_path, monkeypatch):
+    """Data parallelism is refused; prepared npz scenes (--synthetic 0,
+    data/scannet.py) are ported now and train."""
+    from seggroup_tpu_torch.data.scannet import SCENE_KEYS, save_scene_npz
+
     monkeypatch.chdir(tmp_path)
     with pytest.raises(NotImplementedError):
         S2.main(ARGS + ["--max_iter", "1", "--num_devices", "2"])
-    with pytest.raises(NotImplementedError):
-        S2.main([a if a != "2" else "0" for a in ARGS] + ["--max_iter", "1"])
+    root = tmp_path / "prepared" / "manual"
+    root.mkdir(parents=True)
+    for i in range(2):
+        save_scene_npz(str(root / f"scene000{i}_00.npz"),
+                       dict(zip(SCENE_KEYS, make_synthetic_scene(seed=i))))
+    prepared = ARGS[:1] + ["0"] + ARGS[2:]  # --synthetic 0
+    it, _ = S2.main(prepared + ["--max_iter", "1", "--data_root", str(tmp_path / "prepared")])
+    assert it == 1
+    assert CheckpointManager(tmp_path / "checkpoints" / "t" / "minkunet").latest_step() == 1
 
 
 def test_evaluation_restores_the_trained_model(trained, capsys, monkeypatch):

@@ -32,6 +32,8 @@ def test_import_leaves_jax_out():
         "import seggroup_tpu_torch.models.pointgroup, seggroup_tpu_torch.eval.instance_ap\n"
         "import seggroup_tpu_torch.cli.stage2_pointgroup_common\n"
         "import seggroup_tpu_torch.cli.stage2_test_pointgroup\n"
+        "import seggroup_tpu_torch.cli.stage1_train, seggroup_tpu_torch.cli.stage1_infer\n"
+        "import seggroup_tpu_torch.cli.stage1_evaluate, seggroup_tpu_torch.data.scannet\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert not bad, bad\n"
     )
@@ -123,3 +125,18 @@ def test_pointgroup_entry_points_default_to_the_card(tmp_path, monkeypatch):
         PointGroup(m=8)
     with pytest.raises(RuntimeError, match="CUDA"):
         make_eval_model(8, 2048, "cuda")
+
+
+def test_stage1_drivers_default_to_the_card(tmp_path, monkeypatch):
+    """The stage-1 training and inference drivers without --device run on
+    CUDA and raise where there is none, before they write anything."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    from seggroup_tpu_torch.cli import stage1_infer, stage1_train
+
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        stage1_train.main(["--synthetic", "1", "--epochs", "1"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        stage1_infer.main(["--synthetic", "1", "--ins_infer"])
+    assert not (tmp_path / "checkpoints").exists()
