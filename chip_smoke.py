@@ -68,8 +68,26 @@ Phases, in order; any failure exits non-zero:
      then the clustering and the ScoreNet on the true labels of a scene;
  13. PointGroup at a small size on the card and on the CPU: heads within
      tolerance, clustering exactly equal at shared heads, scores within
-     tolerance at a shared voxel map;
- 14. a `kernels` JSON line, the card line, then the device line as the last.
+     tolerance at a shared voxel map; before the PointGroup path (in phase
+     11), K3 against its plain version at every PointGroup (Cin, Cout), K =
+     27 and K = 1, bit-equal across two runs, beside the pre-gathered
+     matmul and the bound;
+ 14. the PointGroup training path at full width (this slice's main path):
+     train steps at the training driver's defaults (m=16, 2^17 points,
+     2^16 voxels, batch size 4, Adam lr 1e-3) over the 4 bench-size scenes
+     through cli.stage2_train_pointgroup.train_step, batches built ahead
+     by the host prefetcher as the driver builds them: the prepare phase
+     (no clustering), then the clustering and the ScoreNet, each 2
+     warm-up, 6 timed and 2 fenced steps (host batch, voxelise, unet,
+     clustering, scorenet, loss, backward, optimizer); K2's, K3's and K4's
+     launch counts are read around the timed steps of each; then one step
+     with every K2 and K3 call held against its plain version;
+ 15. one PointGroup train step (m=8, with the clustering) at float32 convs
+     on a 2,048-point batch on the card and on the CPU: integer outputs
+     equal, the loss, each gradient and the running statistics within
+     tolerance; then 30 Adam steps on that batch on the card, whose loss
+     must fall;
+ 16. a `kernels` JSON line, the card line, then the device line as the last.
 
 Needs one card. Imports nothing of JAX or of the JAX package."""
 
@@ -149,6 +167,20 @@ PG_SUBM_PER_FORWARD = (1 + 7 * 4 + 6 * 5) + (2 * 4 + 5)
 PG_PAIRS = ([(6, 16)] + [(16 * i, 16 * i) for i in range(1, 8)]
             + [(32 * i, 16 * i) for i in range(1, 7)])
 PG_K1_PAIRS = [(32 * i, 16 * i) for i in range(1, 7)]
+# PointGroup training: the training driver's defaults (cli/stage2_train_pointgroup.py)
+PGT_BATCH, PGT_LR, PGT_INSTANCE_CAP = 4, 1e-3, 256
+PGT_WARMUP, PGT_STEPS, PGT_FENCED = 2, 6, 2
+# submanifold convs of the U-Net alone (the prepare phase); with the
+# clustering the ScoreNet's join them (PG_SUBM_PER_FORWARD)
+PG_SUBM_UNET = 1 + 7 * 4 + 6 * 5
+# PointGroup card vs CPU train step at float32 convs: the bounds
+# tests/test_torch_pointgroup_train.py holds the port to against JAX; the
+# gradient of the bias that the training BatchNorm after it removes is
+# rounding noise on both sides, held in absolute terms
+PGT_LOSS_RTOL, PGT_GRAD_RTOL, PGT_STAT_TOL, PGT_NOISE_GRAD = 1e-5, 1e-4, 1e-5, 1e-6
+PGT_ZERO_GRAD = "offset_dense.bias"
+PG_SMALL = dict(classes=8, m=8, max_proposals_per_source=32, score_cap=2048,
+                cluster_npoint_thre=20, cluster_radius=0.25)
 
 
 def machine_id(torch) -> str:
@@ -1026,11 +1058,16 @@ class CheckedDispatch:
     the data gradient and the weight gradient, through the device dispatch
     of sparse/conv.py) is held against its plain version on the same card
     inputs: max |kernel - plain| within K2_RTOL or K3_RTOL of max|plain|.
-    Records the worst ratio per (kernel, Cin, Cout, rows)."""
+    Records the worst ratio per (kernel, Cin, Cout, rows, kernel volume),
+    the calls per kernel, and in `empty` the keys whose every plain result
+    was all zero (there the ratio says nothing)."""
 
     def __init__(self, torch):
         self.torch = torch
         self.worst: dict = {}
+        self.calls: dict = {}
+        self.empty: set = set()
+        self.nonzero: set = set()
 
     def _checked(self, name, fn, plain, rtol):
         def call(a, b, rulebook, compute_dtype):
@@ -1038,8 +1075,14 @@ class CheckedDispatch:
             if a.is_cuda:
                 want = plain(a, b, rulebook, compute_dtype)
                 ratio = float((got - want).abs().max() / want.abs().max().clamp(min=1e-30))
-                key = (name, a.shape[1], got.shape[-1], a.shape[0])
+                key = (name, a.shape[1], got.shape[-1], a.shape[0], rulebook.shape[1])
+                self.calls[name] = self.calls.get(name, 0) + 1
                 self.worst[key] = max(self.worst.get(key, 0.0), ratio)
+                if bool((want != 0).any()):
+                    self.nonzero.add(key)
+                    self.empty.discard(key)
+                elif key not in self.nonzero:
+                    self.empty.add(key)
                 if ratio > rtol or not self.torch.isfinite(got).all():
                     raise AssertionError(f"{name} {key[1:]} in the network: max |kernel - "
                                          f"plain| = {ratio:.2e} of max|plain|")
@@ -1063,8 +1106,8 @@ class CheckedDispatch:
         by = {}
         for key, ratio in self.worst.items():
             by.setdefault(key[0], []).append(ratio)
-        return "; ".join(f"{name} {len(r)} shapes, worst {max(r):.2e} of max|plain|"
-                         for name, r in sorted(by.items()))
+        return "; ".join(f"{name} {self.calls[name]} calls over {len(r)} shapes, worst "
+                         f"{max(r):.2e} of max|plain|" for name, r in sorted(by.items()))
 
 
 def _grads_on(torch, devices, st, labels, caps, train, f32=False):
@@ -1650,6 +1693,424 @@ def pointgroup_card_vs_cpu(torch, dev):
           f"CPU| = {float((s_a - s_b).abs().max()):.3e}", flush=True)
 
 
+def _pg_train_setup(torch, dev, seed=0):
+    """The training driver's model (make_eval_model's PointGroup at m=16,
+    7 levels of 2^16 >> i rows, a ScoreNet over 2^13) and its Adam."""
+    from seggroup_tpu_torch.cli.stage2_test_pointgroup import make_eval_model
+    from seggroup_tpu_torch.cli.stage2_train_pointgroup import make_adam, step_schedule
+
+    model = make_eval_model(PG_M, PG_VOXEL_CAP, dev, seed=seed)
+    optimizer, scheduler = make_adam(model, step_schedule(PGT_LR, 0.5, 120000))
+    return model, optimizer, scheduler
+
+
+def _pg_wire_batch(scenes, step, phase=None):
+    """The training driver's wire batch of `step` over `scenes`
+    (make_train_batch at the driver's defaults, its generator seeded by
+    (seed, step) at seed 1); `phase` times its halves, "host batch" and
+    "voxelise"."""
+    from seggroup_tpu_torch.cli.stage2_train_pointgroup import make_train_batch
+
+    return make_train_batch(scenes.__getitem__, range(len(scenes)),
+                            np.random.default_rng((1, step)), PGT_BATCH, PG_POINT_CAP,
+                            PG_VOXEL_CAP, PGT_INSTANCE_CAP, VOXEL, True, phase)
+
+
+def _cluster_on_labels(torch, model, batch):
+    """Has `model` cluster on heads made from the batch's own labels and
+    instance centroids (one-hot scores of the true classes, offsets half-way
+    to the instance's centroid, as cc_problems' true-label problem: at the
+    whole offset an instance's points fall into one cell, past what the
+    windowed sweep holds, and the exact fallback would take the clustering
+    from K4), as a trained model's heads would give them; the model's own
+    heads still feed the loss. A point past the voxel cap has no voxel and
+    zero features, from which no heads can tell its class: it is given
+    class 0, which does not cluster. At random weights the heads give few
+    proposals, or none, of such points, and the ScoreNet then has no
+    work."""
+    voxels, p2v, coords, _, valid, labels, inst, centroid, _ = batch
+    classes = model.linear.out_features
+    known = valid & (p2v < voxels.capacity)
+    sem = torch.nn.functional.one_hot(torch.where(known, labels, 0).clamp(0, classes - 1).long(),
+                                      classes).float()
+    on_inst = (known & (inst >= 0))[:, None]
+    off = torch.where(on_inst, 0.5 * (centroid - coords), 0.0)
+    cluster = type(model).cluster.__get__(model)
+    model.cluster = lambda _sem, _off, *rest: cluster(sem, off, *rest)
+
+
+def run_pointgroup_train_path(torch, dev, card):
+    """PointGroup training at the training driver's defaults (m=16, 2^17
+    points, 2^16 voxels, batch size 4, Adam lr 1e-3) over the 4 bench-size
+    scenes, batches built ahead by the host prefetcher as the driver builds
+    them, through cli.stage2_train_pointgroup.train_step: the prepare phase
+    (no clustering, no score loss), then the clustering and the ScoreNet,
+    each 2 warm-up steps, 6 timed unfenced and 2 fenced. The clustering
+    steps cluster on heads made from each batch's labels
+    (_cluster_on_labels), so that the ScoreNet works as it would after
+    the prepare phase, and each must give a proposal. Checks the launch
+    counts of K2 (forward and data gradient), K3 (weight gradient) and K4
+    (at least one sweep a clustering step), finite losses and gradients,
+    and that every parameter and running statistic moved. Returns the
+    launch counts of each mode's timed steps."""
+    from seggroup_tpu_torch.cli.stage2_train_pointgroup import train_step
+    from seggroup_tpu_torch.data.pg_wire import unpack_pg_batch
+    from seggroup_tpu_torch.device import PhaseClock
+    from seggroup_tpu_torch.ops import cuda_cc
+    from seggroup_tpu_torch.sparse import cuda_subm_conv, cuda_subm_dw
+    from seggroup_tpu_torch.utils.prefetch import HostPrefetcher
+
+    scenes = [_pg_scene(i)[1:] for i in range(N_SCENES)]
+    model, optimizer, scheduler = _pg_train_setup(torch, dev)
+    before = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    jitter_gen = torch.Generator().manual_seed(2)
+    prefetch = HostPrefetcher(lambda s: _pg_wire_batch(scenes, s + 1), depth=3, workers=1)
+    losses, out = [], {}
+
+    def step(clustering, batch, phases=None):
+        jitter = torch.rand(3, generator=jitter_gen).to(dev)
+        if clustering:
+            _cluster_on_labels(torch, model, batch)
+        loss, _, props = train_step(model, optimizer, scheduler, batch, clustering, jitter,
+                                    phase_seconds=phases)
+        losses.append(loss)
+        return props
+
+    try:
+        for clustering in (False, True):
+            mode = "clustering and ScoreNet" if clustering else "prepare phase"
+            t0 = time.perf_counter()
+            for _ in range(PGT_WARMUP):
+                step(clustering, unpack_pg_batch(next(prefetch), PG_VOXEL_CAP, dev))
+            torch.cuda.synchronize()
+            print(f"PointGroup training warm-up ({mode}), {PGT_WARMUP} steps: "
+                  f"{time.perf_counter() - t0:.3f} s", flush=True)
+
+            torch.cuda.reset_peak_memory_stats(dev)
+            cuda_subm_conv.launches = cuda_subm_dw.launches = cuda_cc.launches = 0
+            points, dropped, props = [], [], []
+            t0 = time.perf_counter()
+            for _ in range(PGT_STEPS):
+                w = next(prefetch)
+                points.append(int(w["nvalid"]))
+                dropped.append(int((w["p2v"][:points[-1]] >= PG_VOXEL_CAP).sum()))
+                props.append(step(clustering, unpack_pg_batch(w, PG_VOXEL_CAP, dev)))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {"subm_conv": cuda_subm_conv.launches, "subm_dw": cuda_subm_dw.launches,
+                        "cc_sweep": cuda_cc.launches}
+            peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+            props = [int(x) for x in props]
+
+            # the split, each phase fenced by a synchronisation on each side
+            phases: dict[str, float] = {}
+            clock = PhaseClock(dev, phases)
+            fenced_props = []
+            t0 = time.perf_counter()
+            for i in range(PGT_FENCED):
+                w = _pg_wire_batch(scenes, 1000 + i, clock)
+                with clock("voxelise"):  # the transfer and the voxel features on the card
+                    batch = unpack_pg_batch(w, PG_VOXEL_CAP, dev)
+                fenced_props.append(int(step(clustering, batch, phases)))
+            fenced = (time.perf_counter() - t0) / PGT_FENCED
+
+            n_subm = PG_SUBM_PER_FORWARD if clustering else PG_SUBM_UNET
+            if (launches["subm_conv"] != (2 * n_subm - 1) * PGT_STEPS
+                    or launches["subm_dw"] != n_subm * PGT_STEPS):
+                raise AssertionError(f"PointGroup training ({mode}): K2 launched "
+                                     f"{launches['subm_conv']} times, K3 "
+                                     f"{launches['subm_dw']} in {PGT_STEPS} steps")
+            if (launches["cc_sweep"] >= PGT_STEPS) != clustering:
+                raise AssertionError(f"PointGroup training ({mode}): K4 launched "
+                                     f"{launches['cc_sweep']} times in {PGT_STEPS} steps")
+            if clustering and min(props + fenced_props) < 1:
+                raise AssertionError(f"PointGroup training ({mode}): a step gave no proposal: "
+                                     f"timed {props}, fenced {fenced_props}")
+            top = ("host batch", "voxelise", "unet", "clustering", "scorenet", "loss",
+                   "backward", "optimizer")
+            split = ", ".join(f"{k} {phases.get(k, 0.0) / PGT_FENCED:.4f} s" for k in top)
+            inner = ", ".join(f"{k} {phases.get(k, 0.0) / PGT_FENCED:.4f} s"
+                              for k in ("rulebooks", "subm_conv"))
+            print(f"PointGroup training ({mode}), m={PG_M}, point cap {PG_POINT_CAP}, voxel "
+                  f"cap {PG_VOXEL_CAP}, batch size {PGT_BATCH} from {N_SCENES} bench-size "
+                  f"scenes (valid points {points}, of them without a voxel past the cap "
+                  f"{dropped}), Adam lr {PGT_LR}: "
+                  f"{wall / PGT_STEPS:.4f} s/step over {PGT_STEPS} steps, "
+                  f"{sum(points) / wall:.1f} points/s; fenced split per step "
+                  f"({fenced:.4f} s/step): {split}; inside the forward: {inner}; peak "
+                  f"{peak_gib:.2f} GiB; per step {launches['subm_conv'] / PGT_STEPS:.1f} K2, "
+                  f"{launches['subm_dw'] / PGT_STEPS:.1f} K3 and "
+                  f"{launches['cc_sweep'] / PGT_STEPS:.2f} K4 launches; proposals per step "
+                  f"{props}, fenced {fenced_props}"
+                  f"{' (clustered on heads from the labels)' if clustering else ''}; on {card}, "
+                  f"{machine_id(torch)}", flush=True)
+            out[clustering] = dict(launches, s_per_step=wall / PGT_STEPS,
+                                   points_per_s=sum(points) / wall, peak_gib=peak_gib,
+                                   proposals=props)
+    finally:
+        prefetch.close()
+
+    loss_values = [float(x) for x in losses]
+    if not np.isfinite(loss_values).all():
+        raise AssertionError(f"non-finite PointGroup training loss: {loss_values}")
+    for name, p in model.named_parameters():
+        if not bool(torch.isfinite(p.grad).all()):
+            raise AssertionError(f"gradient of {name} not finite")
+    unmoved = [k for k, v in model.state_dict().items() if torch.equal(v, before[k])]
+    if unmoved:
+        raise AssertionError(f"parameters or running statistics did not move: {unmoved}")
+    print(f"PointGroup training losses {[round(x, 4) for x in loss_values]}; every parameter "
+          f"and running statistic moved, the ScoreNet's among them", flush=True)
+    return out
+
+
+def pointgroup_train_checked_step(torch, dev):
+    """One PointGroup train step with the clustering, every K2 and K3 call
+    of it (forward, data gradient, weight gradient; the K = 1 branches
+    among them) held against its plain version on the same card inputs
+    (CheckedDispatch): at the driver's defaults on a bench batch, clustered
+    on heads from its labels (_cluster_on_labels) so that the ScoreNet's
+    U-Net runs on nonzero features, and with the small model (m=8) on a 2,048-point
+    batch on its own heads. Each must give a proposal, every gradient must
+    be nonzero but that of the bias before the heads' training BatchNorm,
+    and every shape of K2 and K3 must have met a nonzero plain result."""
+    from seggroup_tpu_torch.cli.stage2_train_pointgroup import make_adam, step_schedule, train_step
+    from seggroup_tpu_torch.data.pg_wire import unpack_pg_batch
+    from seggroup_tpu_torch.models.pointgroup import PointGroup
+
+    scenes = [_pg_scene(i)[1:] for i in range(N_SCENES)]
+    w = _pg_wire_batch(scenes, 2000)
+    full = (*_pg_train_setup(torch, dev, seed=1), unpack_pg_batch(w, PG_VOXEL_CAP, dev),
+            int(w["nvalid"]))
+    _cluster_on_labels(torch, full[0], full[3])
+    small = PointGroup(device=dev, seed=5, **PG_SMALL)
+    small = (small, *make_adam(small, step_schedule(PGT_LR, 0.5, 120000)),
+             _pg_small_train_batch(torch, dev), 2048)
+    jitter = torch.tensor([0.25, 0.5, 0.75], device=dev)
+    for name, (model, optimizer, scheduler, batch, n) in (("the driver's defaults", full),
+                                                          ("m=8", small)):
+        with CheckedDispatch(torch) as checked:
+            loss, _, props = train_step(model, optimizer, scheduler, batch, True, jitter)
+        k1 = sum(1 for key in checked.worst if key[0] == "K3" and key[4] == 1)
+        zero = [k for k, p in model.named_parameters()
+                if float(p.grad.abs().max()) == 0 and k != PGT_ZERO_GRAD]
+        n_subm = sum(1 for k in dict(model.named_parameters()) if k.endswith(".kernel"))
+        line = (f"PointGroup train step at {name} ({n} points, {int(props)} proposals), every "
+                f"kernel call against its plain version: {checked.summary()}; K3 at kernel "
+                f"volume 1 over {k1} shapes; shapes whose every plain result was zero "
+                f"{len(checked.empty)}; loss {float(loss):.6f}; zero gradients {len(zero)}")
+        if (checked.calls.get("K2") != 2 * n_subm - 1 or checked.calls.get("K3") != n_subm
+                or k1 < 1 or not np.isfinite(float(loss)) or zero or int(props) < 1
+                or checked.empty):
+            raise AssertionError(f"{line}: {zero} {sorted(checked.empty)}")
+        print(line, flush=True)
+
+
+def check_subm_dw_pointgroup(torch, dev, card):
+    """K3 against its plain version in bf16 at every (Cin, Cout) of
+    PointGroup at m=16 on 65,536 dense sites: K = 27 over the site
+    rulebook, K = 1 over each row's own index; each case run twice and
+    required bit-equal; kernel, plain and pre-gathered matmul times beside
+    the bound (at K = 1 the matmul is feats^T @ dout over the present
+    rows). Returns (largest error, times per case)."""
+    from seggroup_tpu_torch.sparse import cuda_subm_dw
+    from seggroup_tpu_torch.sparse.conv import subm_dw_plain
+
+    m = PG_VOXEL_CAP
+    rb27 = k2_sites(torch, dev, m)
+    rb1 = torch.arange(m, dtype=torch.int32, device=dev)[:, None].contiguous()
+    g = torch.Generator(device=dev).manual_seed(3)
+    worst, cases = 0.0, {}
+    for (cin, cout), rb in [(c, rb27) for c in PG_PAIRS] + [(c, rb1) for c in PG_K1_PAIRS]:
+        kvol = rb.shape[1]
+        f = torch.randn(m, cin, generator=g, device=dev).to(torch.bfloat16)
+        d = torch.randn(m, cout, generator=g, device=dev).to(torch.bfloat16)
+        got = cuda_subm_dw.subm_dw_cuda(f, d, rb)
+        again = cuda_subm_dw.subm_dw_cuda(f, d, rb)
+        want = subm_dw_plain(f, d, rb, torch.bfloat16)
+        torch.cuda.synchronize()
+        err, scale = float((got - want).abs().max()), float(want.abs().max())
+        present = int((rb < m).sum())
+        line = (f"K3 {cuda_subm_dw.regime(cin)} ({cin},{cout}) K={kvol} PointGroup, M={m}: "
+                f"max |kernel - plain| = {err:.3e} = {err / scale:.2e} of max|plain| "
+                f"({present / m:.2f} present neighbours per row)")
+        if err > K3_RTOL * scale or not torch.isfinite(got).all():
+            raise AssertionError(line)
+        if not torch.equal(got, again):
+            raise AssertionError(f"{line}: two runs on the same inputs differ")
+        worst = max(worst, err)
+        ms = cuda_ms(lambda: cuda_subm_dw.subm_dw_cuda(f, d, rb), reps=20, warmup=2)
+        plain_ms = cuda_ms(lambda: subm_dw_plain(f, d, rb, torch.bfloat16), reps=2, warmup=1)
+        a = torch.cat([f, f.new_zeros(1, cin)])[rb.long()].reshape(m, kvol * cin)
+        library_ms = cuda_ms(lambda: torch.matmul(a.T, d), reps=20, warmup=2)
+        del a
+        nbytes = m * cin * 2 + m * cout * 2 + m * kvol * 4 + kvol * cin * cout * 4
+        flops = 2 * present * cin * cout
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
+        bound, by = max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+        print(f"{line}; bit-equal across two runs; kernel {ms:.4f} ms, plain {plain_ms:.3f} "
+              f"ms, library {library_ms:.4f} ms, bound {bound:.4f} ms ({by}); kernel "
+              f"{ms / library_ms:.2f} times the library on {card}", flush=True)
+        cases[f"({cin},{cout}) K={kvol}"] = dict(ms=ms, plain_ms=plain_ms,
+                                                 library_ms=library_ms, bound_ms=bound,
+                                                 bound_by=by)
+    return worst, cases
+
+
+class PlainConvs:
+    """While active, the submanifold convs run their plain versions at
+    float32 on every device (the kernels take bf16 operands only), so
+    that the card and the CPU differ only in the order of their sums."""
+
+    def __init__(self, torch):
+        self.torch = torch
+
+    def __enter__(self):
+        import functools
+
+        from seggroup_tpu_torch.models import minkunet
+        from seggroup_tpu_torch.sparse import conv
+
+        self.saved = conv._subm_apply, conv._subm_dw, minkunet.subm_conv
+        conv._subm_apply, conv._subm_dw = conv.subm_conv_plain, conv.subm_dw_plain
+        minkunet.subm_conv = functools.partial(minkunet.subm_conv,
+                                               compute_dtype=self.torch.float32)
+        return self
+
+    def __exit__(self, *exc):
+        from seggroup_tpu_torch.models import minkunet
+        from seggroup_tpu_torch.sparse import conv
+
+        conv._subm_apply, conv._subm_dw, minkunet.subm_conv = self.saved
+
+
+def _pg_small_train_batch(torch, dev, seed=7):
+    """A small scene (4,096 points) in a 2,048-point batch, voxelised by the
+    training driver's host voxelisation into 2,048 rows, on `dev`."""
+    from seggroup_tpu_torch.cli.stage2_pointgroup_common import (host_voxelize_plan,
+                                                                 make_pg_batch,
+                                                                 scene_instance_tuple)
+    from seggroup_tpu_torch.data.pg_wire import pack_pg_batch, unpack_pg_batch
+    from seggroup_tpu_torch.data.synthetic import make_synthetic_scene
+
+    scene = scene_instance_tuple(make_synthetic_scene(seed=seed), {}, None, "")
+    hb = make_pg_batch([scene], 2048, 64)
+    vcoords, num, p2v = host_voxelize_plan(hb, VOXEL, 2048)
+    return unpack_pg_batch(pack_pg_batch(hb, vcoords, num, p2v), 2048, dev)
+
+
+def pointgroup_train_card_vs_cpu(torch, dev, card):
+    """One PointGroup train forward and backward (m=8, the clustering and
+    the ScoreNet, a fixed jitter) at float32 convs on a 2,048-point batch,
+    on the card and on the CPU from the same weights: integer outputs
+    equal, the loss, each gradient and the running statistics within the
+    bounds the CPU tests hold the port to against JAX. Then 30 Adam steps
+    of the bf16 model (K2, K3, K4) on that batch on the card: the mean of
+    the last 5 losses must be below the mean of the first 5."""
+    from seggroup_tpu_torch.cli.stage2_train_pointgroup import make_adam, step_schedule, train_step
+    from seggroup_tpu_torch.models.pointgroup import PointGroup, pointgroup_loss
+
+    jitter = torch.tensor([0.25, 0.5, 0.75])
+    cpu = torch.device("cpu")
+
+    def run(d, heads=None):
+        """The float32 step on `d`; with `heads` (the CPU's scores and
+        offsets), clustered on those."""
+        model = PointGroup(device=d, seed=4, **PG_SMALL)
+        with torch.no_grad():  # spread the statistics so that no layer is the identity
+            for name, buf in model.named_buffers():
+                buf.copy_(torch.linspace(0.5, 1.5, buf.numel()) if name.endswith("var")
+                          else torch.linspace(-0.2, 0.2, buf.numel()))
+        if heads is not None:
+            cluster = model.cluster
+            model.cluster = lambda sem, off, *rest, **kw: cluster(
+                *(h.to(d) for h in heads), *rest, **kw)
+        st, p2v, coords, batch_ids, valid, labels, inst, centroid, pointnum = (
+            _pg_small_train_batch(torch, d))
+        with PlainConvs(torch):
+            out = model(st, p2v, coords, batch_ids, valid, do_clustering=True, train=True,
+                        jitter=jitter.to(d))
+            loss, _ = pointgroup_loss(out, labels, inst, centroid, pointnum, coords, valid,
+                                      pointnum.shape[0], True)
+            loss.backward()
+        return model, out, float(loss), valid.cpu()
+
+    m_b, b, loss_b, valid = run(cpu)
+    m_a, a, loss_a, _ = run(dev)
+    heads = float((a.semantic_scores.detach().cpu() - b.semantic_scores.detach()).abs().max())
+    top2 = b.semantic_scores.detach().topk(2, dim=1).values
+    gap = top2[:, 0] - top2[:, 1]
+    flipped = valid & (a.semantic_scores.detach().cpu().argmax(1)
+                       != b.semantic_scores.detach().argmax(1))
+    pinned = ""
+    if bool(flipped.any()):
+        # a class argmax at a near-tie may fall the other way under another
+        # summation order; the step is then held at shared proposals
+        if float(gap[flipped].max()) > 2 * heads:
+            raise AssertionError(f"PointGroup train: card vs CPU argmax differs where the "
+                                 f"two best classes are {float(gap[flipped].max()):.2e} apart, "
+                                 f"the heads within {heads:.2e}")
+        pinned = (f"; {int(flipped.sum())} argmaxes fell the other way at near-ties (the "
+                  f"widest gap {float(gap[flipped].max()):.2e}), so held at shared proposals")
+        m_a, a, loss_a, _ = run(dev, (b.semantic_scores.detach(), b.pt_offsets.detach()))
+    for name in ("proposal_of_point", "proposal_valid", "num_proposals"):
+        x, y = getattr(a, name).cpu(), getattr(b, name)
+        if not torch.equal(x, y):
+            raise AssertionError(f"PointGroup train {name}: card vs CPU differ at "
+                                 f"{int((x != y).sum())} entries")
+    # a point whose features are all zero scores every class at its bias,
+    # exactly the same on both sides: the least gap that is not such a tie
+    gap = float(gap[valid & (gap > 0)].min())
+    loss_err = abs(loss_a - loss_b) / abs(loss_b)
+    if loss_err > PGT_LOSS_RTOL:
+        raise AssertionError(f"PointGroup train loss: card {loss_a} vs CPU {loss_b}")
+    grad_err = 0.0
+    cpu_params = dict(m_b.named_parameters())
+    for name, p in m_a.named_parameters():
+        got, want = p.grad.cpu(), cpu_params[name].grad
+        if name == PGT_ZERO_GRAD:
+            if max(float(got.abs().max()), float(want.abs().max())) > PGT_NOISE_GRAD:
+                raise AssertionError(f"gradient of {name} is not rounding noise")
+            continue
+        if float(want.abs().max()) == 0:
+            raise AssertionError(f"gradient of {name} is zero")
+        err = float((got - want).abs().max()) / float(want.abs().max())
+        if not err <= PGT_GRAD_RTOL:
+            raise AssertionError(f"gradient of {name}: card vs CPU differ by {err:.3e} of "
+                                 f"its max")
+        grad_err = max(grad_err, err)
+    cpu_buffers = dict(m_b.named_buffers())
+    stat_err = 0.0
+    for name, v in m_a.named_buffers():
+        if not torch.allclose(v.cpu(), cpu_buffers[name], rtol=PGT_STAT_TOL, atol=PGT_STAT_TOL):
+            raise AssertionError(f"running statistic {name}: card vs CPU differ by "
+                                 f"{float((v.cpu() - cpu_buffers[name]).abs().max())}")
+        stat_err = max(stat_err, float((v.cpu() - cpu_buffers[name]).abs().max()))
+    print(f"card vs CPU, PointGroup train step m=8 at N=2048 float32 convs with the "
+          f"clustering: proposals equal ({int(b.num_proposals)}{pinned}), semantic scores "
+          f"within {heads:.2e} (least nonzero gap of a valid point's two best classes "
+          f"{gap:.2e}), loss "
+          f"{loss_b:.6f} (relative error {loss_err:.2e}), gradients within {grad_err:.2e} of "
+          f"their max, running statistics within {stat_err:.2e}", flush=True)
+    if int(b.num_proposals) < 1:
+        raise AssertionError("PointGroup card vs CPU train step: no proposal")
+
+    model = PointGroup(device=dev, seed=5, **PG_SMALL)
+    optimizer, scheduler = make_adam(model, step_schedule(PGT_LR, 0.5, 120000))
+    batch = _pg_small_train_batch(torch, dev)
+    gen = torch.Generator().manual_seed(6)
+    losses = [float(train_step(model, optimizer, scheduler, batch, True,
+                               torch.rand(3, generator=gen).to(dev))[0])
+              for _ in range(OVERFIT_STEPS)]
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    line = (f"PointGroup overfit, bf16 m=8 with the clustering on one batch of 2048 points, "
+            f"{OVERFIT_STEPS} Adam steps: mean loss of the first 5 {first:.4f}, of the last 5 "
+            f"{last:.4f}; on {card}")
+    if not (np.isfinite(losses).all() and last < first):
+        raise AssertionError(f"{line}; losses {losses}")
+    print(line, flush=True)
+
+
 def build_all() -> None:
     """Build every kernel, one nvcc per source, all started together."""
     from seggroup_tpu_torch.ops import cuda_cc, cuda_fps
@@ -1714,22 +2175,37 @@ def main() -> int:
     pg_model = make_eval_model(PG_M, PG_VOXEL_CAP, dev)
     k4 = check_cc_sweep(torch, dev, card, pg_model)
     check_subm_conv_pointgroup(torch, dev, card)
+    k3_pg_err, k3_pg = check_subm_dw_pointgroup(torch, dev, card)
     pointgroup = run_pointgroup_path(torch, dev, card, pg_model)
     pointgroup_card_vs_cpu(torch, dev)
+    del pg_model
+    pg_train = run_pointgroup_train_path(torch, dev, card)
+    pointgroup_train_checked_step(torch, dev)
+    pointgroup_train_card_vs_cpu(torch, dev, card)
 
-    # this slice's path is stage-1 training; the inference forwards' count
-    # stands beside it
+    # this slice's path is PointGroup training (K2, K3, K4); each kernel's
+    # counts on the other paths stand beside it. K1 runs on the stage-1
+    # paths only, so its count is stage-1 training's.
     k1["launches"] = train_fps
     k1["launches_by_path"] = {"stage1_inference": launches["masked_fps"],
-                              "stage1_training": train_fps}
-    # the training path runs both K2 and K3; K2's counts on the inference
-    # paths stand beside it
-    k2["launches"] = train["subm_conv"]
+                              "stage1_training": train_fps, "pointgroup_training": 0}
+    prepare, clustering = pg_train[False], pg_train[True]
+    k2["launches"] = prepare["subm_conv"] + clustering["subm_conv"]
     k2["launches_by_path"] = {"stage2_semantic_inference": inference_k2,
                               "stage2_training": train["subm_conv"],
-                              "pointgroup_inference": pointgroup["subm_conv"]}
-    k3["launches"] = train["subm_dw"]
-    k4["launches"] = pointgroup["cc_sweep"]
+                              "pointgroup_inference": pointgroup["subm_conv"],
+                              "pointgroup_training_prepare": prepare["subm_conv"],
+                              "pointgroup_training_clustering": clustering["subm_conv"]}
+    k3["launches"] = prepare["subm_dw"] + clustering["subm_dw"]
+    k3["launches_by_path"] = {"stage2_training": train["subm_dw"],
+                              "pointgroup_training_prepare": prepare["subm_dw"],
+                              "pointgroup_training_clustering": clustering["subm_dw"]}
+    k3["max_abs_err"] = max(k3["max_abs_err"], k3_pg_err)
+    k3["pointgroup_pairs"] = k3_pg
+    k4["launches"] = clustering["cc_sweep"]
+    k4["launches_by_path"] = {"pointgroup_inference": pointgroup["cc_sweep"],
+                              "pointgroup_training_prepare": prepare["cc_sweep"],
+                              "pointgroup_training_clustering": clustering["cc_sweep"]}
     print(json.dumps({"kernels": [k1, k2, k3, k4]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,12 @@
 """Host-side batch assembly for PointGroup
-(cli/stage2_pointgroup_common.py:17-127 of the JAX package): scenes ->
-one padded point batch with compact instance ids, per-point instance
-centroids and per-instance point counts.
+(cli/stage2_pointgroup_common.py of the JAX package): scenes -> one padded
+point batch with compact instance ids, per-point instance centroids and
+per-instance point counts, and the batch's voxelisation for training.
 
-Numpy only; the same scenes give the same batch as the JAX package's.
-Not ported (training): `host_voxelize_plan` (host window plans) and the
-packed wire format."""
+Numpy only; the same scenes give the same batch as the JAX package's. The
+wire format is `data/pg_wire.py`. Not ported: the host pyramid plans of
+`host_voxelize_plan(level_caps=...)` (sparse/plan.py, the JAX trainer's
+`--plan_mode host`); the port's returns the voxelisation alone."""
 
 from __future__ import annotations
 
@@ -125,3 +126,26 @@ def make_pg_batch(tuples, n_cap, i_cap, rng=None, augment=False,
         pointnum[u] = sel.sum()
     inst = np.where((inst != IGNORE) & (inst < i_cap), inst, IGNORE)
     return PGHostBatch(coords, feats, batch_ids, valid, labels, inst, centroid, pointnum, semn)
+
+
+def host_voxelize_plan(hb: PGHostBatch, voxel_size: float, voxel_cap: int):
+    """The training batch's voxelisation on the host (the JAX function with
+    `level_caps=None`): the valid points' cells floor(coords / voxel_size),
+    shifted so that their least is 0, one voxel per distinct (batch, x, y,
+    z) in lexicographic order, the first `voxel_cap` kept. Returns
+    (voxel_coords (voxel_cap, 4) int32, num_voxels (those kept),
+    point2voxel (N,) int32 with voxel_cap for dropped and invalid points).
+    The JAX side's host pyramid plan is not ported."""
+    n_valid = int(hb.valid.sum())
+    ic = np.floor(hb.coords[:n_valid] / voxel_size).astype(np.int32)
+    if n_valid:
+        ic -= ic.min(0)
+    keys = np.concatenate([hb.batch_ids[:n_valid, None].astype(np.int32), ic], axis=1)
+    vc, rank = np.unique(keys, axis=0, return_inverse=True)
+    rank = rank.reshape(-1).astype(np.int32)
+    m = min(len(vc), voxel_cap)
+    vcoords = np.zeros((voxel_cap, 4), np.int32)
+    vcoords[:m] = vc[:m]
+    p2v = np.full(len(hb.coords), voxel_cap, np.int32)
+    p2v[:n_valid] = np.where(rank < voxel_cap, rank, voxel_cap)
+    return vcoords, np.int32(m), p2v

@@ -1,0 +1,274 @@
+"""Stage-2 instance segmentation training: PointGroup on pseudo labels
+(cli/stage2_train_pointgroup.py of the JAX package; reference
+pointgroup/train.py with config/pointgroup_run2_scannet.yaml): Adam at lr
+1e-3 under the step schedule lr = base * multiplier^(step // step_size),
+never below 1e-6; the heads alone for `--prepare_steps` steps, then the
+dual clustering, the ScoreNet and its loss; validation on held-out scenes
+with the best checkpoint kept; a STOP file.
+
+A host thread (utils/prefetch.py) builds each step's batch ahead of the
+card: the scenes drawn and augmented with the generator seeded by (seed,
+step), cropped and padded to the point cap, voxelised
+(`host_voxelize_plan`) and packed into the compact wire format, whose
+colours are float16 as the JAX trainer's default `--plan_mode device`
+ships them. The main thread moves the batch to the card and runs
+`train_step`: the forward with BatchNorm batch statistics, the loss, the
+backward through the submanifold convs' kernels (K2 for the data gradient,
+K3 for the weight gradient), and the optimizer step; the clustering runs
+kernel K4. The proposals' jitter comes from a generator seeded by seed + 1,
+three uniforms a step, so a resumed run draws what an unbroken one would.
+
+    python -m seggroup_tpu_torch.cli.stage2_train_pointgroup --synthetic 8 --steps 50
+    python -m seggroup_tpu_torch.cli.stage2_train_pointgroup --data_root ... --pseudo_root results/exp
+    python -m seggroup_tpu_torch.cli.stage2_train_pointgroup --synthetic 2 --device cpu \\
+        --steps 4 --prepare_steps 2 --save_freq 2 --point_cap 4096 --voxel_cap 4096 --m 8
+
+Runs on the card unless `--device cpu`. Writes checkpoints/<exp>/pointgroup,
+which cli/stage2_test_pointgroup.py restores. Not ported: `--plan_mode
+host` (the host pyramid plans) and data parallelism (`--num_devices` > 1);
+both raise."""
+
+from __future__ import annotations
+
+import argparse
+import os
+import time
+from collections.abc import Callable, Sequence
+
+import numpy as np
+import torch
+
+from seggroup_tpu_torch.cli.stage1_common import (SceneSource, add_common_args, dump_config,
+                                                  should_stop)
+from seggroup_tpu_torch.cli.stage2_pointgroup_common import (host_voxelize_plan, make_pg_batch,
+                                                             scene_instance_tuple)
+from seggroup_tpu_torch.cli.stage2_test_pointgroup import make_eval_model
+from seggroup_tpu_torch.data.pg_wire import pack_pg_batch, unpack_pg_batch
+from seggroup_tpu_torch.device import PhaseClock, resolve_device
+from seggroup_tpu_torch.models.pointgroup import PointGroup, pointgroup_loss
+from seggroup_tpu_torch.solvers import ScheduledLR, make_optimizer
+from seggroup_tpu_torch.utils.checkpoint import CheckpointManager, lenient_restore
+from seggroup_tpu_torch.utils.logging import IOStream
+from seggroup_tpu_torch.utils.prefetch import HostPrefetcher
+from seggroup_tpu_torch.utils.tb import ScalarWriter
+
+MIN_LR = 1e-6
+
+
+def step_schedule(lr: float, multiplier: float, step_size: int) -> Callable[[int], float]:
+    """The reference's step decay (util/utils.py:25-29) with the JAX
+    driver's floor: lr * multiplier^(step // step_size), at least 1e-6."""
+    return lambda s: max(lr * multiplier ** (s // step_size), MIN_LR)
+
+
+def make_adam(model: PointGroup, schedule: Callable[[int], float]
+              ) -> tuple[torch.optim.Optimizer, ScheduledLR]:
+    """The JAX driver's optax.adam(schedule): no weight decay."""
+    return make_optimizer("Adam", model.parameters(), schedule, weight_decay=0.0)
+
+
+def train_step(model: PointGroup, optimizer: torch.optim.Optimizer, scheduler: ScheduledLR,
+               batch: tuple, do_clustering: bool, jitter: torch.Tensor | None,
+               phase_seconds: dict | None = None) -> tuple[torch.Tensor, dict, torch.Tensor]:
+    """One training step on the model's device, the single-device form of
+    parallel/dp.py `build_pointgroup_dp_step` (its pmean and psum are the
+    identity on one device): the `train` forward (BatchNorm batch
+    statistics, which move the running ones; with `do_clustering` the
+    dual clustering with the proposals shifted by `jitter` and the
+    ScoreNet), pointgroup_loss (the score loss with `do_clustering`), the
+    backward and one optimizer step. `batch` is unpack_pg_batch's tuple;
+    the instance cap is the length of its per-instance point counts.
+    Parameters that the step does not reach (the ScoreNet's before the
+    clustering starts) get a zero gradient, as jax.grad gives them, so
+    that Adam counts the step for them as optax does. Returns (loss, the
+    loss's parts, proposals), all on the device. With `phase_seconds`, the
+    device is synchronised around "forward" (and inside it "unet",
+    "clustering", "scorenet"), "loss", "backward" and "optimizer", and
+    their wall seconds are added to the dict."""
+    st, p2v, coords, batch_ids, valid, labels, inst, centroid, pointnum = batch
+    phase = PhaseClock(coords.device, phase_seconds)
+    with phase("forward"):
+        out = model(st, p2v, coords, batch_ids, valid, do_clustering=do_clustering, train=True,
+                    jitter=jitter, phase_seconds=phase_seconds)
+    with phase("loss"):
+        loss, aux = pointgroup_loss(out, labels, inst, centroid, pointnum, coords, valid,
+                                    num_instances_cap=pointnum.shape[0],
+                                    with_score=do_clustering)
+    with phase("backward"):
+        optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        for p in model.parameters():
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+    with phase("optimizer"):
+        optimizer.step()
+        scheduler.step()
+    return loss.detach(), {k: v.detach() for k, v in aux.items()}, out.num_proposals
+
+
+def make_train_batch(scene_tuple: Callable[[int], tuple], pool: Sequence[int],
+                     rng: np.random.Generator, batch_size: int, point_cap: int, voxel_cap: int,
+                     instance_cap: int, voxel_size: float, augment: bool,
+                     phase: PhaseClock | None = None) -> dict:
+    """The wire batch of `batch_size` scenes drawn from `pool` with `rng`
+    (which also draws the augmentation and the crops). `scene_tuple(i)`
+    gives scene i's (coords, colours, sem, ins). With `phase`, its two
+    halves are timed apart: "host batch" (the draw, the crops, the
+    augmentation, the instance bookkeeping) and "voxelise" (the host
+    voxelisation and the wire)."""
+    phase = phase or PhaseClock(torch.device("cpu"), None)
+    with phase("host batch"):
+        idx = rng.integers(0, len(pool), size=batch_size)
+        hb = make_pg_batch([scene_tuple(int(pool[int(i)])) for i in idx], point_cap,
+                           instance_cap, rng=rng, augment=augment)
+    with phase("voxelise"):
+        vcoords, num, p2v = host_voxelize_plan(hb, voxel_size, voxel_cap)
+        return pack_pg_batch(hb, vcoords, num, p2v)
+
+
+def main(argv: Sequence[str] | None = None):
+    p = argparse.ArgumentParser("stage-2 PointGroup training")
+    add_common_args(p)
+    p.add_argument("--pseudo_root", type=str, default=None)
+    p.add_argument("--voxel_size", type=float, default=0.02)
+    p.add_argument("--point_cap", type=int, default=2 ** 17)
+    p.add_argument("--voxel_cap", type=int, default=2 ** 16)
+    p.add_argument("--instance_cap", type=int, default=256)
+    p.add_argument("--batch_size", type=int, default=4)
+    p.add_argument("--lr", type=float, default=1e-3)
+    p.add_argument("--lr_step_size", type=int, default=120000,
+                   help="steps per decay step (reference step_epoch=384 of "
+                        "384 epochs, i.e. one decay interval over the run)")
+    p.add_argument("--lr_multiplier", type=float, default=0.5)
+    p.add_argument("--steps", type=int, default=120000)
+    p.add_argument("--val_frac", type=float, default=0.1)
+    p.add_argument("--prepare_steps", type=int, default=40000,
+                   help="steps before clustering+ScoreNet kick in "
+                        "(reference prepare_epochs=128 of 384)")
+    p.add_argument("--save_freq", type=int, default=2000)
+    p.add_argument("--m", type=int, default=16)
+    p.add_argument("--prefetch_depth", type=int, default=3)
+    p.add_argument("--plan_mode", choices=["device", "host"], default="device",
+                   help="device: ship compact batches (the port builds the rulebooks "
+                        "inside the forward); host: the host pyramid plans (not ported)")
+    p.add_argument("--resume", action="store_true",
+                   help="restore the model, optimizer and schedule from the latest "
+                        "checkpoint and continue the step counter, the LR schedule and "
+                        "the jitter stream")
+    p.add_argument("--pretrain", type=str, default=None,
+                   help="checkpoint dir to initialize matching tensors from; names or "
+                        "shapes that differ keep their init")
+    args = p.parse_args(argv)
+
+    if args.plan_mode == "host":
+        raise NotImplementedError("--plan_mode host (the host pyramid plans) is not ported")
+    if args.num_devices not in (None, 1):
+        raise NotImplementedError("data parallelism waits for the port of parallel/dp.py")
+    dev = resolve_device(args.device)
+    exp_dir = os.path.join("checkpoints", args.exp_name)
+    io = IOStream(os.path.join(exp_dir, "pointgroup.log"))
+    tb = ScalarWriter(os.path.join(exp_dir, "tb"), enabled=args.tensorboard)
+    dump_config(args, "stage2_pointgroup")
+    source = SceneSource(args)
+    n_val = int(len(source) * args.val_frac)
+    if args.val_frac > 0 and n_val == 0 and len(source) > 1:
+        n_val = 1
+    val_idx = list(range(len(source) - n_val, len(source)))
+    train_idx = list(range(len(source) - n_val)) or val_idx
+    io.cprint(f"scenes: {len(train_idx)} train / {len(val_idx)} val")
+
+    def scene_tuple(i: int):
+        scene, extras = source.get(i)
+        return scene_instance_tuple(scene, extras, args.pseudo_root, source.names[i])
+
+    def make_batch(rng, pool, augment):
+        return make_train_batch(scene_tuple, pool, rng, args.batch_size, args.point_cap,
+                                args.voxel_cap, args.instance_cap, args.voxel_size, augment)
+
+    model = make_eval_model(args.m, args.voxel_cap, dev, seed=args.seed)
+    io.cprint("Network parameters: %.2fM" % (sum(x.numel() for x in model.parameters()) / 1e6))
+    schedule = step_schedule(args.lr, args.lr_multiplier, args.lr_step_size)
+    optimizer, scheduler = make_adam(model, schedule)
+    ckpt = CheckpointManager(os.path.join(exp_dir, "pointgroup"), pow2_retention=True)
+    best_ckpt = CheckpointManager(os.path.join(exp_dir, "pointgroup_best"))
+    if args.pretrain:
+        state, n_loaded, n_tot = lenient_restore(args.pretrain, model.state_dict(),
+                                                 log=io.cprint)
+        model.load_state_dict(state)
+        io.cprint(f"pretrain init: {n_loaded}/{n_tot} tensors from {args.pretrain}")
+    start_it = 0
+    if args.resume:
+        restored = ckpt.restore(map_location=dev)
+        if restored is not None:
+            model.load_state_dict(restored["model"])
+            optimizer.load_state_dict(restored["optimizer"])
+            scheduler.load_state_dict(restored["scheduler"])
+            start_it = ckpt.latest_step()
+            io.cprint(f"resumed from step {start_it} (lr continues at {schedule(start_it):.4g})")
+
+    def save_state(it):
+        ckpt.save(it, {"model": model.state_dict(), "optimizer": optimizer.state_dict(),
+                       "scheduler": scheduler.state_dict()})
+
+    val_rng = np.random.default_rng(args.seed + 100)
+
+    def validate():
+        losses = []
+        with torch.no_grad():
+            for _ in range(max(1, len(val_idx) // args.batch_size)):
+                batch = unpack_pg_batch(make_batch(val_rng, val_idx, False), args.voxel_cap, dev)
+                st, p2v, coords, batch_ids, valid, labels, inst, centroid, pointnum = batch
+                out = model(st, p2v, coords, batch_ids, valid, do_clustering=False, train=False)
+                loss, _ = pointgroup_loss(out, labels, inst, centroid, pointnum, coords, valid,
+                                          num_instances_cap=args.instance_cap,
+                                          with_score=False)
+                losses.append(float(loss))
+        return float(np.mean(losses))
+
+    # one jitter draw a step, clustering or not: replayed on resume
+    jitter_gen = torch.Generator().manual_seed(args.seed + 1)
+    for _ in range(start_it):
+        torch.rand(3, generator=jitter_gen)
+    prefetch = HostPrefetcher(
+        lambda s: make_batch(np.random.default_rng((args.seed, s + 1)), train_idx, True),
+        depth=args.prefetch_depth, workers=1, start=start_it)
+    best_val = float("inf")
+    t0 = time.time()
+    it = start_it
+    try:
+        for it in range(start_it + 1, args.steps + 1):
+            jitter = torch.rand(3, generator=jitter_gen).to(dev)
+            clustering = it > args.prepare_steps
+            batch = unpack_pg_batch(next(prefetch), args.voxel_cap, dev)
+            loss, aux, _ = train_step(model, optimizer, scheduler, batch, clustering, jitter)
+            if it % 10 == 0 or it == args.steps:
+                parts = "  ".join(f"{k} {float(v):.4f}" for k, v in aux.items())
+                io.cprint("step %d/%d  loss %.4f  %s  (%.2fs/it)"
+                          % (it, args.steps, float(loss), parts,
+                             (time.time() - t0) / max(1, it - start_it)))
+                tb.add_scalar("train/loss", float(loss), it)
+                for k, v in aux.items():
+                    tb.add_scalar(f"train/{k}", float(v), it)
+            if should_stop(args.exp_name):
+                io.cprint("STOP file found — saving and exiting")
+                save_state(it)
+                break
+            if it % args.save_freq == 0 or it == args.steps:
+                save_state(it)
+                vl = validate()
+                marker = ""
+                if vl < best_val:
+                    best_val = vl
+                    best_ckpt.save(it, {"model": model.state_dict()})
+                    marker = "  (new best)"
+                io.cprint(f"==> saved step {it}  val loss {vl:.4f}{marker}")
+                tb.add_scalar("val/loss", float(vl), it)
+    finally:
+        prefetch.close()
+        tb.close()
+        io.close()
+    return it, best_val
+
+
+if __name__ == "__main__":
+    main()

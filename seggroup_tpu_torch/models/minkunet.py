@@ -11,7 +11,8 @@ across.
 
 With `train=True` BatchNorm normalises by the batch statistics of the valid
 voxels and updates its running statistics (momentum 0.02, the torch
-convention); with `train=False` it runs on the running statistics. The
+convention; `SparseBatchNorm` takes it as an argument, and PointGroup's is
+0.1); with `train=False` it runs on the running statistics. The
 forward records the autograd graph unless the caller turns it off
 (`torch.no_grad()`, as the inference drivers do). Not ported:
 `SparseInstanceNorm` and the other norm types, the ST/Tesseract variants
@@ -32,7 +33,7 @@ from seggroup_tpu_torch.sparse.conv import (build_subm_rulebook, inverse_conv_up
 from seggroup_tpu_torch.sparse.tensor import SparseTensor
 
 INIT_DIM = 32  # the stem's width (Res16UNetBase INIT_DIM)
-BN_MOMENTUM = 0.02  # weight of the batch in the running statistics (reference bn_momentum)
+BN_MOMENTUM = 0.02  # MinkUNet's weight of the batch in the running statistics (bn_momentum)
 
 
 def _conv_kernel(k: int, cin: int, cout: int) -> nn.Parameter:
@@ -62,11 +63,12 @@ class SparseBatchNorm(nn.Module):
     """BatchNorm over valid voxels, `scale`/`bias` map, running `mean`/`var`
     (the flax names). Training normalises by the masked batch mean and the
     biased variance over the valid rows, and updates the running statistics
-    as new = (1 - BN_MOMENTUM) * old + BN_MOMENTUM * batch, the biased
-    variance included (F.batch_norm would keep the unbiased one)."""
+    as new = (1 - momentum) * old + momentum * batch (the torch convention),
+    the biased variance included (F.batch_norm would keep the unbiased one)."""
 
-    def __init__(self, c: int, epsilon: float = 1e-5):
+    def __init__(self, c: int, momentum: float = BN_MOMENTUM, epsilon: float = 1e-5):
         super().__init__()
+        self.momentum = momentum
         self.epsilon = epsilon
         self.scale = nn.Parameter(torch.ones(c))
         self.bias = nn.Parameter(torch.zeros(c))
@@ -80,8 +82,8 @@ class SparseBatchNorm(nn.Module):
             mean = (feats * w).sum(0) / cnt
             var = ((feats - mean).square() * w).sum(0) / cnt
             with torch.no_grad():
-                self.mean.copy_((1 - BN_MOMENTUM) * self.mean + BN_MOMENTUM * mean)
-                self.var.copy_((1 - BN_MOMENTUM) * self.var + BN_MOMENTUM * var)
+                self.mean.copy_((1 - self.momentum) * self.mean + self.momentum * mean)
+                self.var.copy_((1 - self.momentum) * self.var + self.momentum * var)
         else:
             mean, var = self.mean, self.var
         y = (feats - mean) * torch.rsqrt(var + self.epsilon)

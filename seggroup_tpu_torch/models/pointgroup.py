@@ -1,8 +1,8 @@
-"""PointGroup instance segmentation, inference
-(seggroup_tpu/models/pointgroup.py:51-396).
+"""PointGroup instance segmentation (seggroup_tpu/models/pointgroup.py):
+the model, its score targets and its loss.
 
-The same forward as the flax `PointGroup` with `train=False` and no host
-plan:
+The same forward as the flax `PointGroup` without a host plan, in both of
+its modes:
 
   * a 7-level sparse U-Net ([m..7m], pre-activation ResidualBlocks,
     kernel-2 stride-2 down and inverse up convs) over the voxels, its
@@ -20,11 +20,21 @@ that each stage can be held at shared inputs. Module and attribute names
 are the flax names (`unet/u/u/...`), so
 `models.convert.pointgroup_params_from_flax` reads straight across.
 
-Not ported (training): `train=True` (BatchNorm batch statistics; PointGroup
-uses momentum 0.1), `jitter_rng`, host plans (`plan=`), the split-program
-mode (`proposals_only`, `score_plan`), the probe knobs
-`score_stop_gradient` and `skip_score_unet`, `pg_score_targets` and
-`pointgroup_loss`."""
+With `train=True` every BatchNorm normalises by the batch statistics of its
+valid rows and moves its running statistics at momentum 0.1 (the torch
+convention; epsilon 1e-4), and autograd runs through the U-Net, the heads
+and the ScoreNet. The clustering is integer work on detached heads (the
+reference's `stop_gradient`). The ScoreNet's voxel mean and its roipool
+max are the JAX side's sorted engine (`segment_mean_sorted`,
+`segment_max_sorted`): the same sums in the same order, and the max's
+gradient to one row a proposal. The proposals' jitter is injected (a
+tensor of 3 uniforms, drawn by the caller): JAX's draw cannot be
+reproduced. `pg_score_targets` and `pointgroup_loss` are the JAX
+functions' counterparts.
+
+Not ported: host plans (`plan=`) and the split-program mode
+(`proposals_only`, `score_plan`), which needs the ScoreNet's device plan
+(sparse/device_plan.py)."""
 
 from __future__ import annotations
 
@@ -39,9 +49,10 @@ from seggroup_tpu_torch.device import PhaseClock, resolve_device
 from seggroup_tpu_torch.models.minkunet import (SparseBatchNorm, SubMConv, _conv_kernel,
                                                 variance_scaling_init_)
 from seggroup_tpu_torch.ops.cc import compact_labels
-from seggroup_tpu_torch.ops.fma import fma32
+from seggroup_tpu_torch.ops.fma import dot_fma, fma32
+from seggroup_tpu_torch.ops.iou import proposal_instance_iou
 from seggroup_tpu_torch.ops.radius_cc import semantic_radius_cc
-from seggroup_tpu_torch.ops.segment_ops import (segment_max, segment_mean,
+from seggroup_tpu_torch.ops.segment_ops import (segment_max, segment_max_sorted,
                                                 segment_mean_sorted, segment_min)
 from seggroup_tpu_torch.ops.voxelize import VoxelMap, voxelize
 from seggroup_tpu_torch.sparse.conv import (build_subm_rulebook, inverse_conv_up,
@@ -49,11 +60,11 @@ from seggroup_tpu_torch.sparse.conv import (build_subm_rulebook, inverse_conv_up
 from seggroup_tpu_torch.sparse.tensor import SparseTensor
 
 IGNORE = -100
-BN_EPSILON = 1e-4
+BN_MOMENTUM, BN_EPSILON = 0.1, 1e-4  # SparseBatchNorm(0.1, 1e-4) of the flax model
 
 
 def _bn(c: int) -> SparseBatchNorm:
-    return SparseBatchNorm(c, epsilon=BN_EPSILON)
+    return SparseBatchNorm(c, momentum=BN_MOMENTUM, epsilon=BN_EPSILON)
 
 
 class ResidualBlock(nn.Module):
@@ -69,8 +80,9 @@ class ResidualBlock(nn.Module):
         if cin != cout:
             self.i_branch = SubMConv(cin, cout, kernel_size=1)
 
-    def forward(self, st: SparseTensor, rulebook: torch.Tensor, phase) -> SparseTensor:
-        pre = st.with_feats(F.relu(self.bn1(st.feats, st.valid, False)))
+    def forward(self, st: SparseTensor, rulebook: torch.Tensor, train: bool,
+                phase) -> SparseTensor:
+        pre = st.with_feats(F.relu(self.bn1(st.feats, st.valid, train)))
         if hasattr(self, "i_branch"):
             own_row = torch.arange(st.capacity, dtype=torch.int32,
                                    device=st.feats.device)[:, None]
@@ -78,7 +90,7 @@ class ResidualBlock(nn.Module):
         else:
             identity = st.feats
         h = self.conv1(pre, rulebook, phase)
-        h = F.relu(self.bn2(h, st.valid, False))
+        h = F.relu(self.bn2(h, st.valid, train))
         h = self.conv2(st.with_feats(h), rulebook, phase)
         return st.with_feats(h + identity)
 
@@ -114,22 +126,22 @@ class UBlock(nn.Module):
                 setattr(self, f"tail{i}",
                         ResidualBlock(2 * planes[0] if i == 0 else planes[0], planes[0]))
 
-    def forward(self, st: SparseTensor, phase) -> SparseTensor:
+    def forward(self, st: SparseTensor, train: bool, phase) -> SparseTensor:
         with phase("rulebooks"):
             rb = build_subm_rulebook(st, 3, xy_bits=self.key_xy_bits)
         for i in range(self.block_reps):
-            st = getattr(self, f"block{i}")(st, rb, phase)
+            st = getattr(self, f"block{i}")(st, rb, train, phase)
         if self.deeper:
             cap_down = self.level_caps[1] if self.level_caps else st.capacity >> 1
-            h = F.relu(self.conv_bn(st.feats, st.valid, False))
+            h = F.relu(self.conv_bn(st.feats, st.valid, train))
             with phase("rulebooks"):
                 st_dn, key = strided_conv_down(st.with_feats(h), self.conv_kernel, cap_down)
-            st_dn = self.u(st_dn, phase)
-            h = F.relu(self.deconv_bn(st_dn.feats, st_dn.valid, False))
+            st_dn = self.u(st_dn, train, phase)
+            h = F.relu(self.deconv_bn(st_dn.feats, st_dn.valid, train))
             st_up = inverse_conv_up(st_dn.with_feats(h), self.deconv_kernel, key)
             st = st.with_feats(torch.cat([st.feats, st_up.feats], dim=-1))
             for i in range(self.block_reps):
-                st = getattr(self, f"tail{i}")(st, rb, phase)
+                st = getattr(self, f"tail{i}")(st, rb, train, phase)
         return st
 
 
@@ -154,10 +166,10 @@ class Proposals(NamedTuple):
 
 
 class PointGroup(nn.Module):
-    """The full model for inference. Built on `device`, the card unless the
-    caller asks for the CPU, with weights drawn from `seed` by flax's
-    initializers or loaded from a JAX tree through models.convert.
-    `in_channels` is the width of the voxel features (colours + coords)."""
+    """The full model. Built on `device`, the card unless the caller asks
+    for the CPU, with weights drawn from `seed` by flax's initializers or
+    loaded from a JAX tree through models.convert. `in_channels` is the
+    width of the voxel features (colours + coords)."""
 
     def __init__(self, classes: int = 20, m: int = 16, block_reps: int = 2,
                  cluster_radius: float = 0.03, cluster_npoint_thre: int = 50,
@@ -200,7 +212,7 @@ class PointGroup(nn.Module):
     # --- stage 1: backbone and heads --------------------------------------
 
     def backbone(self, voxels: SparseTensor, p2v: torch.Tensor, point_valid: torch.Tensor,
-                 phase_seconds: dict | None = None):
+                 train: bool = False, phase_seconds: dict | None = None):
         """The U-Net over the voxels, voxel -> point, and the two heads.
         Returns (point_feats (N, m), semantic_scores (N, classes),
         pt_offsets (N, 3)), zero on invalid points."""
@@ -208,15 +220,15 @@ class PointGroup(nn.Module):
         with phase("rulebooks"):
             rb0 = build_subm_rulebook(voxels, 3)
         st = voxels.with_feats(self.input_conv(voxels, rb0, phase))
-        st = self.unet(st, phase)
-        h = F.relu(self.output_bn(st.feats, st.valid, False))
+        st = self.unet(st, train, phase)
+        h = F.relu(self.output_bn(st.feats, st.valid, train))
 
         feats_pad = torch.cat([h, h.new_zeros((1, h.shape[1]))])
         point_feats = feats_pad[torch.clamp(p2v, max=st.capacity).long()]
         point_feats = torch.where(point_valid[:, None], point_feats, 0.0)
 
         semantic_scores = self.linear(point_feats)
-        off = F.relu(self.offset_bn(self.offset_dense(point_feats), point_valid, False))
+        off = F.relu(self.offset_bn(self.offset_dense(point_feats), point_valid, train))
         pt_offsets = torch.where(point_valid[:, None], self.offset_linear(off), 0.0)
         return point_feats, semantic_scores, pt_offsets
 
@@ -248,14 +260,17 @@ class PointGroup(nn.Module):
                 torch.cat([batch_ids * 2, batch_ids * 2 + 1]), torch.cat([obj, obj]),
                 torch.cat([sem_pred, sem_pred]))
 
+    @torch.no_grad()
     def cluster(self, semantic_scores: torch.Tensor, pt_offsets: torch.Tensor,
                 coords: torch.Tensor, batch_ids: torch.Tensor,
-                point_valid: torch.Tensor) -> Proposals:
+                point_valid: torch.Tensor, jitter: torch.Tensor | None = None) -> Proposals:
         """Components of the radius graph among the points predicted as
         objects (classes > 1), on the original and on the offset-shifted
         coordinates at once; components of at least `cluster_npoint_thre`
         points become proposals ([0, P/2) original, [P/2, P) shifted), each
-        re-voxelised into its own fullscale^3 grid."""
+        re-voxelised into its own fullscale^3 grid, shifted inside it by
+        `jitter` (3,) in [0, 1) of the room left (none without it). No
+        gradient flows through it."""
         n = coords.shape[0]
         p_src = self.max_proposals_per_source
         p_total = 2 * p_src
@@ -285,13 +300,21 @@ class PointGroup(nn.Module):
         cmax = segment_max(centered, seg, p_total, fill_value=0.0)
         # the float steps below are rounded as jitted XLA rounds them on the
         # CPU (a division by a constant is a multiplication by its float32
-        # reciprocal; scale-and-shift is one fused multiply-add): the cast
-        # to integer cells turns a last-bit difference into another voxel
+        # reciprocal; scale-and-shift is one fused multiply-add, and so are
+        # the extent and the jitter's shift; the two constants of the room
+        # are folded into one): the cast to integer cells turns a last-bit
+        # difference into another voxel
         fullscale = self.score_fullscale
         inv_fullscale = coords.new_tensor(1.0) / coords.new_tensor(fullscale)
         extent = torch.clamp((cmax - cmin).max(dim=1).values * inv_fullscale, min=1e-6)
         pscale = torch.clamp(extent.new_tensor(1.0) / extent - 0.01, max=self.score_scale)
-        offset = -(cmin * pscale[:, None])  # no jitter: the proposal sits at the grid's corner
+        ps = pscale[:, None].expand_as(cmin)
+        min_xyz = cmin * ps
+        if jitter is None:
+            offset = -min_xyz  # the proposal sits at the grid's corner
+        else:
+            room = torch.clamp((fullscale - 0.001) - fma32(cmax, ps, -min_xyz), min=0)
+            offset = fma32(room, jitter.to(room)[None, :].expand_as(room), -min_xyz)
         scaled = fma32(centered, pscale[own][:, None].expand_as(centered), offset[own])
         icoords = torch.clamp(scaled, 0, fullscale - 1e-3).to(torch.int32)
 
@@ -302,49 +325,52 @@ class PointGroup(nn.Module):
     # --- stage 3: ScoreNet --------------------------------------------------
 
     def score(self, point_feats: torch.Tensor, proposal_of_point: torch.Tensor,
-              score_vox: VoxelMap, phase_seconds: dict | None = None) -> torch.Tensor:
+              score_vox: VoxelMap, train: bool = False,
+              phase_seconds: dict | None = None) -> torch.Tensor:
         """(P,) proposal scores (pre-sigmoid): the proposals' voxels take the
         mean of their points' features, pass the 2-level U-Net, and each
-        proposal takes the max over its points."""
+        proposal takes the max over its points (its gradient to the
+        earliest point among equal maxima)."""
         phase = PhaseClock(point_feats.device, phase_seconds)
         p_total = 2 * self.max_proposals_per_source
         flat_prop = proposal_of_point.reshape(-1)
         fv = flat_prop < p_total
         flat_feats = torch.cat([point_feats, point_feats])
-        sv_feats = segment_mean(torch.where(fv[:, None], flat_feats, 0.0),
-                                score_vox.point2voxel, self.score_cap)
+        sv_feats = segment_mean_sorted(torch.where(fv[:, None], flat_feats, 0.0),
+                                       score_vox.point2voxel, self.score_cap)
         st = SparseTensor(score_vox.voxel_coords, sv_feats, score_vox.voxel_valid,
                           score_vox.num_voxels)
-        st = self.score_unet(st, phase)
-        hs = F.relu(self.score_bn(st.feats, st.valid, False))
+        st = self.score_unet(st, train, phase)
+        hs = F.relu(self.score_bn(st.feats, st.valid, train))
         hs_pad = torch.cat([hs, hs.new_zeros((1, hs.shape[1]))])
         flat_score_feats = hs_pad[torch.clamp(score_vox.point2voxel, max=self.score_cap).long()]
-        prop_feats = segment_max(torch.where(fv[:, None], flat_score_feats, 0.0),
-                                 torch.where(fv, flat_prop, -1), p_total)
+        prop_feats = segment_max_sorted(torch.where(fv[:, None], flat_score_feats, 0.0),
+                                        torch.where(fv, flat_prop, -1), p_total)
         return self.score_linear(prop_feats)[:, 0]
 
     def forward(self, voxels: SparseTensor, p2v: torch.Tensor, coords: torch.Tensor,
                 batch_ids: torch.Tensor, point_valid: torch.Tensor,
-                do_clustering: bool = False, train: bool = False, jitter_rng=None,
+                do_clustering: bool = False, train: bool = False,
+                jitter: torch.Tensor | None = None,
                 plan=None, proposals_only: bool = False, score_plan=None,
                 phase_seconds: dict | None = None) -> PGOutput:
         """voxels: the scene's SparseTensor; p2v (N,) point -> voxel row;
         coords (N, 3) metric; batch_ids, point_valid (N,). Without
         `do_clustering` only the heads run and there are no proposals.
+        `train` uses and moves the BatchNorm statistics. `jitter`, the
+        proposals' shift inside their grids: a (3,) tensor of uniforms in
+        [0, 1); none without it, as the reference without `jitter_rng`.
         With `phase_seconds`, the card is synchronised around the stages
         ("unet", "clustering", "scorenet") and inside them around the
         rulebook builds and the submanifold convs, and their wall seconds
         are added to the dict."""
-        if train or jitter_rng is not None:
-            raise NotImplementedError("PointGroup training (train=True, jitter_rng) is "
-                                      "not ported")
         if plan is not None or proposals_only or score_plan is not None:
             raise NotImplementedError("host plans and the split-program mode "
                                       "(plan=, proposals_only, score_plan) are not ported")
         phase = PhaseClock(coords.device, phase_seconds)
         with phase("unet"):
             point_feats, semantic_scores, pt_offsets = self.backbone(
-                voxels, p2v, point_valid, phase_seconds)
+                voxels, p2v, point_valid, train, phase_seconds)
         n = coords.shape[0]
         p_total = 2 * self.max_proposals_per_source
         dev = coords.device
@@ -354,9 +380,87 @@ class PointGroup(nn.Module):
                             torch.zeros(p_total, dtype=torch.bool, device=dev),
                             torch.zeros((), dtype=torch.int32, device=dev))
         with phase("clustering"):
-            props = self.cluster(semantic_scores, pt_offsets, coords, batch_ids, point_valid)
+            props = self.cluster(semantic_scores, pt_offsets, coords, batch_ids, point_valid,
+                                 jitter)
         with phase("scorenet"):
-            scores = self.score(point_feats, props.proposal_of_point, props.score_vox,
+            scores = self.score(point_feats, props.proposal_of_point, props.score_vox, train,
                                 phase_seconds)
         return PGOutput(semantic_scores, pt_offsets, scores, props.proposal_of_point,
                         props.proposal_valid, props.num_proposals)
+
+
+# --- losses (seggroup_tpu/models/pointgroup.py:404-488) ----------------------
+
+
+def pg_score_targets(proposal_of_point: torch.Tensor, p_total: int,
+                     instance_labels: torch.Tensor, point_valid: torch.Tensor,
+                     instance_pointnum: torch.Tensor, num_instances_cap: int,
+                     fg_thresh: float = 0.75, bg_thresh: float = 0.25) -> torch.Tensor:
+    """(P,) IoU-binned soft score targets: each proposal's best IoU with a
+    ground-truth instance (the instances' sizes given, since the flat
+    membership lists a point under both clustering sources), mapped
+    linearly from [bg_thresh, fg_thresh] onto [0, 1] and clipped."""
+    flat_prop = proposal_of_point.reshape(-1)
+    flat_inst = torch.cat([instance_labels, instance_labels])
+    flat_ok = (flat_prop < p_total) & torch.cat([point_valid, point_valid])
+    ious = proposal_instance_iou(flat_prop, torch.where(flat_inst == IGNORE, -1, flat_inst),
+                                 flat_ok, p_total, num_instances_cap,
+                                 instance_sizes=instance_pointnum)
+    gt_ious = ious.max(dim=1).values
+    k = 1.0 / (fg_thresh - bg_thresh)
+    b = bg_thresh / (bg_thresh - fg_thresh)
+    # gt * k + b as XLA fuses it: one multiply-add
+    return torch.clamp(fma32(gt_ious, torch.full_like(gt_ious, k), torch.full_like(gt_ious, b)),
+                       0.0, 1.0)
+
+
+def _safe_norm(x: torch.Tensor) -> torch.Tensor:
+    """sqrt(|x|^2 + 1e-12) per row, rounded as jitted XLA rounds it: the
+    squared length a chain of fused multiply-adds over the three columns,
+    the root correctly rounded (taken in float64: torch's float32 sqrt on
+    the CPU is not, in about one value of 150). The 1e-12 keeps the
+    gradient finite on all-zero (masked) rows."""
+    return torch.sqrt((dot_fma(x, x)[:, None] + 1e-12).double()).float()
+
+
+def pointgroup_loss(out: PGOutput, labels: torch.Tensor, instance_labels: torch.Tensor,
+                    instance_centroids: torch.Tensor, instance_pointnum: torch.Tensor,
+                    coords: torch.Tensor, point_valid: torch.Tensor, num_instances_cap: int,
+                    with_score: bool, fg_thresh: float = 0.75, bg_thresh: float = 0.25
+                    ) -> tuple[torch.Tensor, dict]:
+    """(total, {"semantic_loss", "offset_norm_loss", "offset_dir_loss"[,
+    "score_loss"]}): the masked mean NLL of the semantic scores (labels
+    IGNORE excluded), the mean L1 distance of the offsets to the instance
+    centroids and the mean negative cosine between them over the points of
+    an instance, and with `with_score` the masked BCE of the valid
+    proposals' scores against pg_score_targets."""
+    classes = out.semantic_scores.shape[-1]
+    ok = point_valid & (labels != IGNORE)
+    lp = F.log_softmax(out.semantic_scores, dim=-1)
+    nll = -lp.gather(1, torch.clamp(labels, 0, classes - 1).long()[:, None])[:, 0]
+    semantic_loss = torch.where(ok, nll, 0.0).sum() / torch.clamp(ok.sum(), min=1)
+
+    iv = point_valid & (instance_labels != IGNORE)
+    gt_off = instance_centroids - coords
+    diff = out.pt_offsets - gt_off
+    l1 = diff.abs().sum(-1)
+    fiv = iv.to(l1.dtype)
+    offset_norm_loss = (l1 * fiv).sum() / (fiv.sum() + 1e-6)
+    gt_n = gt_off / (_safe_norm(gt_off) + 1e-8)
+    pt_n = out.pt_offsets / (_safe_norm(out.pt_offsets) + 1e-8)
+    offset_dir_loss = (-(gt_n * pt_n).sum(-1) * fiv).sum() / (fiv.sum() + 1e-6)
+
+    total = semantic_loss + offset_norm_loss + offset_dir_loss
+    aux = {"semantic_loss": semantic_loss, "offset_norm_loss": offset_norm_loss,
+           "offset_dir_loss": offset_dir_loss}
+    if with_score:
+        gt_scores = pg_score_targets(out.proposal_of_point, out.proposal_valid.shape[0],
+                                     instance_labels, point_valid, instance_pointnum,
+                                     num_instances_cap, fg_thresh, bg_thresh)
+        pred = torch.sigmoid(out.scores)
+        bce = -(gt_scores * torch.log(pred + 1e-12) + (1 - gt_scores) * torch.log(1 - pred + 1e-12))
+        score_loss = (torch.where(out.proposal_valid, bce, 0.0).sum()
+                      / torch.clamp(out.proposal_valid.sum(), min=1))
+        total = total + score_loss
+        aux["score_loss"] = score_loss
+    return total, aux

@@ -8,11 +8,16 @@ for both of the JAX side's engines ("scatter" and the sort-and-scan
 order, so they agree with the JAX side to rounding, not bit for bit, and
 differ from run to run; integer reductions and max/min are exact.
 
-`segment_mean_sorted` is for float sums that decide integers downstream
-(PointGroup's proposal centres, which decide voxel coordinates): it adds in
-the order of segment_sorted.py's stable sort and pairwise segmented scan, so
-it equals the JAX side bit for bit and is the same on every run and
-device."""
+`segment_mean_sorted` is for float sums that must equal the JAX side's
+sorted engine (PointGroup's proposal centres, which decide voxel
+coordinates, and the ScoreNet's voxel features): it adds in the order of
+segment_sorted.py's stable sort and pairwise segmented scan, so it equals
+the JAX side bit for bit and is the same on every run and device; its
+gradient is that engine's gather of g / count. `segment_max_sorted` is the
+sorted engine's max: the same values as `segment_max`, but its gradient
+goes whole to one row of each segment, the earliest among equal maxima,
+where the scatter max shares it among them (PointGroup's roipool, whose
+ReLU leaves ties at 0 everywhere)."""
 
 from __future__ import annotations
 
@@ -26,6 +31,7 @@ __all__ = [
     "segment_max",
     "segment_min",
     "segment_mean_sorted",
+    "segment_max_sorted",
 ]
 
 
@@ -129,22 +135,66 @@ def _segmented_scan(flags: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
     return scan(flags, vals)[1]
 
 
+class _MeanSorted(torch.autograd.Function):
+    """The sorted engine's segment mean with its custom VJP
+    (segment_sorted.py `_mean_bwd`): the backward gathers g / count."""
+
+    @staticmethod
+    def forward(ctx, data, segment_ids, num_segments):
+        valid = (segment_ids >= 0) & (segment_ids < num_segments)
+        key = torch.where(valid, segment_ids, num_segments).to(torch.int32)
+        order = torch.argsort(key, stable=True)
+        sk = key[order]
+        probe = torch.arange(num_segments, dtype=torch.int32, device=key.device)
+        starts = torch.searchsorted(sk, probe)
+        ends = torch.searchsorted(sk, probe, right=True)
+        d2 = data.reshape(data.shape[0], -1)
+        sd = torch.where(valid[order][:, None], d2[order], 0)
+        flags = torch.cat([torch.ones(1, dtype=torch.bool, device=key.device),
+                           sk[1:] != sk[:-1]])
+        run = _segmented_scan(flags, sd)
+        total = torch.where((ends > starts)[:, None], run[torch.clamp(ends - 1, min=0)], 0)
+        count = torch.clamp(ends - starts, min=1).to(data.dtype)
+        ctx.save_for_backward(segment_ids, count)
+        ctx.num_segments = num_segments
+        return (total / count[:, None]).reshape((num_segments,) + tuple(data.shape[1:]))
+
+    @staticmethod
+    def backward(ctx, g):
+        segment_ids, count = ctx.saved_tensors
+        valid = (segment_ids >= 0) & (segment_ids < ctx.num_segments)
+        ids = torch.where(valid, segment_ids, 0).long()
+        g2 = g.reshape(g.shape[0], -1)
+        gd = torch.where(valid[:, None], g2[ids] / count[ids][:, None], 0)
+        return gd.reshape((segment_ids.shape[0],) + tuple(g.shape[1:])), None, None
+
+
 def segment_mean_sorted(data: torch.Tensor, segment_ids: torch.Tensor,
                         num_segments: int) -> torch.Tensor:
     """`segment_mean` of float data in the sorted engine's summation order:
     rows stably sorted by segment, a pairwise segmented scan, each segment's
-    sum read at its last row."""
+    sum read at its last row. Differentiable in `data`: row i gets
+    g[seg(i)] / count(seg(i))."""
+    return _MeanSorted.apply(data, segment_ids, num_segments)
+
+
+def segment_max_sorted(data: torch.Tensor, segment_ids: torch.Tensor,
+                       num_segments: int, fill_value=None) -> torch.Tensor:
+    """Per-segment max (N, ...) -> (num_segments, ...) as the sorted engine
+    computes it (segment_sorted.py `_extreme`): each output element is the
+    input element of its segment's winning row, the earliest row among
+    equal maxima, gathered, so the gradient goes to that row alone. Empty
+    segments get `fill_value` (default 0)."""
     valid = (segment_ids >= 0) & (segment_ids < num_segments)
-    key = torch.where(valid, segment_ids, num_segments).to(torch.int32)
-    order = torch.argsort(key, stable=True)
-    sk = key[order]
-    probe = torch.arange(num_segments, dtype=torch.int32, device=key.device)
-    starts = torch.searchsorted(sk, probe)
-    ends = torch.searchsorted(sk, probe, right=True)
     d2 = data.reshape(data.shape[0], -1)
-    sd = torch.where(valid[order][:, None], d2[order], 0)
-    flags = torch.cat([torch.ones(1, dtype=torch.bool, device=key.device), sk[1:] != sk[:-1]])
-    run = _segmented_scan(flags, sd)
-    total = torch.where((ends > starts)[:, None], run[torch.clamp(ends - 1, min=0)], 0)
-    count = torch.clamp(ends - starts, min=1).to(data.dtype)
-    return (total / count[:, None]).reshape((num_segments,) + tuple(data.shape[1:]))
+    with torch.no_grad():
+        best = _reduce(d2, segment_ids, num_segments, "amax", _extreme(d2.dtype, high=False))
+        ids = torch.where(valid, segment_ids, 0).long()
+        rows = torch.arange(d2.shape[0], device=d2.device)[:, None].expand_as(d2)
+        wins = valid[:, None] & (d2 == best[ids])
+        arg = _reduce(torch.where(wins, rows, d2.shape[0]), segment_ids, num_segments,
+                      "amin", d2.shape[0])
+        nonempty = arg < d2.shape[0]
+    out = torch.where(nonempty, d2.gather(0, torch.where(nonempty, arg, 0)),
+                      0 if fill_value is None else fill_value)
+    return out.reshape((num_segments,) + tuple(data.shape[1:]))

@@ -3,7 +3,8 @@
 The five schedules are the JAX package's formulas. `make_optimizer` gives
 torch.optim's SGD (momentum 0.9) or Adam with an L2 weight decay of 1e-4
 added to the gradient, which is optax's `add_decayed_weights` followed by
-`sgd` or `adam`. `ScheduledLR` sets the learning rate of step s to
+`sgd` or `adam`; with `weight_decay=0`, Adam is optax's plain `adam` (the
+PointGroup trainer's). `ScheduledLR` sets the learning rate of step s to
 schedule(s), s counted from 0 as optax counts its updates."""
 
 from __future__ import annotations
@@ -38,14 +39,14 @@ def make_schedule(name: str, base_lr: float, *, max_iter: int = 60000) -> Schedu
 
 
 def make_optimizer(name: str, params: Iterable[torch.nn.Parameter], schedule: Schedule,
-                   momentum: float = SGD_MOMENTUM
+                   momentum: float = SGD_MOMENTUM, weight_decay: float = WEIGHT_DECAY
                    ) -> tuple[torch.optim.Optimizer, "ScheduledLR"]:
     """(optimizer, its ScheduledLR); the optimizer starts at schedule(0)."""
     lr = float(schedule(0))
     if name == "SGD":
-        opt = torch.optim.SGD(params, lr=lr, momentum=momentum, weight_decay=WEIGHT_DECAY)
+        opt = torch.optim.SGD(params, lr=lr, momentum=momentum, weight_decay=weight_decay)
     elif name == "Adam":
-        opt = torch.optim.Adam(params, lr=lr, betas=ADAM_BETAS, weight_decay=WEIGHT_DECAY)
+        opt = torch.optim.Adam(params, lr=lr, betas=ADAM_BETAS, weight_decay=weight_decay)
     else:
         raise ValueError(name)
     return opt, ScheduledLR(opt, schedule)

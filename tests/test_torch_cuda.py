@@ -9,6 +9,7 @@ import torch
 
 from seggroup_tpu_torch.ops import cuda_cc, cuda_fps, radius_cc
 from seggroup_tpu_torch.ops.fps import masked_fps, masked_fps_plain
+from seggroup_tpu_torch.ops.segment_ops import segment_max_sorted, segment_mean_sorted
 from seggroup_tpu_torch.sparse import cuda_subm_conv, cuda_subm_dw
 from seggroup_tpu_torch.sparse.conv import subm_conv_plain, subm_dw_plain
 
@@ -214,6 +215,55 @@ def test_subm_dw_kernel_matches_plain(m, cin, cout, holes):
     assert torch.equal(got, again)  # no atomics: the same bits on every run
     if holes:
         assert (got[9] == 0).all()
+
+
+@pytest.mark.parametrize("m,cin,cout,absent", [
+    (20000, 32, 16, False),     # PointGroup's K = 1 branches: K3b shift 2
+    (20000, 64, 32, False),     # K3b shift 1
+    (20000, 96, 48, True),      # K3a, rows without their own voxel
+    (20003, 192, 96, False),    # the widest, M not a multiple of a slab
+])
+def test_subm_dw_kernel_at_kernel_volume_one(m, cin, cout, absent):
+    """K3 over each row's own index (PointGroup's `i_branch` convs): equal
+    to its plain version, bit-equal across runs, and, with every row
+    present, to feats^T @ dout within the float32 sums' rounding."""
+    dev = _card()
+    g = torch.Generator().manual_seed(cin)
+    f = torch.randn(m, cin, generator=g).to(dev).to(torch.bfloat16)
+    dout = torch.randn(m, cout, generator=g).to(dev).to(torch.bfloat16)
+    rb = torch.arange(m, dtype=torch.int32)[:, None].to(dev).contiguous()
+    if absent:
+        rb[::5] = m
+    got = cuda_subm_dw.subm_dw_cuda(f, dout, rb)
+    again = cuda_subm_dw.subm_dw_cuda(f, dout, rb)
+    want = subm_dw_plain(f, dout, rb, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert got.shape == (1, cin, cout)
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+    assert torch.equal(got, again)
+    if not absent:
+        dense = f.float().T @ dout.float()
+        assert float((got[0] - dense).abs().max()) <= 1e-4 * float(dense.abs().max())
+
+
+def test_sorted_segment_ops_on_card_equal_cpu():
+    """The ScoreNet's sorted voxel mean and roipool max, forward and
+    backward, on the card bit-equal to the CPU: the same sums in the same
+    order, the max's gradient to the same row."""
+    dev = _card()
+    g = torch.Generator().manual_seed(0)
+    data = torch.relu(torch.randn(20000, 16, generator=g))  # ties at 0
+    ids = torch.randint(-3, 600, (20000,), generator=g, dtype=torch.int32)
+    cot = torch.randn(600, 16, generator=g)
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        x = data.to(d).requires_grad_(True)
+        mean = segment_mean_sorted(x, ids.to(d), 600)
+        top = segment_max_sorted(x, ids.to(d), 600)
+        ((mean + top) * cot.to(d)).sum().backward()
+        outs.append([t.detach().cpu() for t in (mean, top, x.grad)])
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("m,slabs,slab_rows,absent", [

@@ -208,9 +208,11 @@ def test_no_clustering_matches_flax(shared):
         np.testing.assert_array_equal(got.numpy(), ref, err_msg=name)
 
 
-@pytest.mark.parametrize("kwargs", [dict(train=True), dict(jitter_rng=0), dict(plan={}),
-                                    dict(proposals_only=True), dict(score_plan=())])
+@pytest.mark.parametrize("kwargs", [dict(plan={}), dict(proposals_only=True),
+                                    dict(score_plan=())])
 def test_training_arguments_raise(shared, kwargs):
+    """Host plans and the split-program mode, which needs the ScoreNet's
+    device plan (sparse/device_plan.py), are not ported."""
     with pytest.raises(NotImplementedError):
         shared["port"](*shared["args"], do_clustering=True, **kwargs)
 

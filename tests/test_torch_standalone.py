@@ -34,6 +34,8 @@ def test_import_leaves_jax_out():
         "import seggroup_tpu_torch.cli.stage2_test_pointgroup\n"
         "import seggroup_tpu_torch.cli.stage1_train, seggroup_tpu_torch.cli.stage1_infer\n"
         "import seggroup_tpu_torch.cli.stage1_evaluate, seggroup_tpu_torch.data.scannet\n"
+        "import seggroup_tpu_torch.cli.stage2_train_pointgroup, seggroup_tpu_torch.data.pg_wire\n"
+        "import seggroup_tpu_torch.ops.iou\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert not bad, bad\n"
     )
@@ -139,4 +141,17 @@ def test_stage1_drivers_default_to_the_card(tmp_path, monkeypatch):
         stage1_train.main(["--synthetic", "1", "--epochs", "1"])
     with pytest.raises(RuntimeError, match="CUDA"):
         stage1_infer.main(["--synthetic", "1", "--ins_infer"])
+    assert not (tmp_path / "checkpoints").exists()
+
+
+def test_pointgroup_training_driver_defaults_to_the_card(tmp_path, monkeypatch):
+    """The PointGroup training driver without --device runs on CUDA and
+    raises where there is none, before it writes anything."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    from seggroup_tpu_torch.cli import stage2_train_pointgroup
+
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        stage2_train_pointgroup.main(["--synthetic", "1", "--steps", "1"])
     assert not (tmp_path / "checkpoints").exists()
