@@ -22,6 +22,12 @@ Phases, in order; any failure exits non-zero:
      sem_infer; K1's launch count is read around it;
   4. the same forward on a small scene at float32 on the card (kernel path)
      and on the CPU (plain path): integer outputs equal;
+ 4a. the stage-1 fast configuration (bench.py's `stage1_fast`: the
+     parallel-rounds grouping; `fast_knn`, exact off the TPU) over the same bench
+     scenes, timed in turns beside the default configuration, with the
+     same output checks, K1's launches (at least one a forward) and the
+     parallel rounds per grouping pass; then its integer outputs card vs
+     CPU at float32 on a bench-shaped scene cut to 2^15 points;
   5. the stage-1 training path at full width: train steps of the bf16
      model over the 4 bench-size scenes through cli.stage1_train.train_step
      (Adam lr 0.001, the driver's defaults), 2 warm-up steps, 8 timed and
@@ -38,6 +44,9 @@ Phases, in order; any failure exits non-zero:
      bench-size scenes voxelised at 2 cm into 2^17 voxels, through
      cli.stage2_test_semantic.test_semantic_minkunet; K2's launch count is
      read around it;
+ 7a. the repaired evaluation driver end to end:
+     cli.stage2_test_semantic.main with --synthetic 2 (Res16UNet34C at its
+     defaults), its log written, K2's launches read around it;
   8. MinkUNet on a small input on the card (K2) and on the CPU (plain):
      rulebooks and downsample maps equal, logits within tolerance;
   9. the stage-2 training path at full width: Res16UNet34C train steps at
@@ -87,7 +96,17 @@ Phases, in order; any failure exits non-zero:
      equal, the loss, each gradient and the running statistics within
      tolerance; then 30 Adam steps on that batch on the card, whose loss
      must fall;
- 16. a `kernels` JSON line, the card line, then the device line as the last.
+ 15a. KPConv semantic inference at the evaluation driver's defaults
+     (KPFCNN with SCANNET_ARCHITECTURE, first_features_dim 64, dl0 0.04,
+     point_cap 2^15, in_radius 2.0, 3 votes) over 2 bench scenes through
+     cli.stage2_test_semantic.test_semantic_kpconv, at seeded weights with
+     nonzero deformable offset kernels: 100% coverage and finite logits,
+     spheres per scene, the fenced split (pyramid, encoder, decoder, host
+     vote), per-level neighbour-overflow rates, peak memory; then one
+     sphere's pyramid (integer arrays and points equal) and logits (within
+     1e-4 of their magnitude) on the card and on the CPU;
+ 16. each phase's wall seconds, a `kernels` JSON line, the card line, then
+     the device line as the last.
 
 Needs one card. Imports nothing of JAX or of the JAX package."""
 
@@ -181,6 +200,20 @@ PGT_LOSS_RTOL, PGT_GRAD_RTOL, PGT_STAT_TOL, PGT_NOISE_GRAD = 1e-5, 1e-4, 1e-5, 1
 PGT_ZERO_GRAD = "offset_dense.bias"
 PG_SMALL = dict(classes=8, m=8, max_proposals_per_source=32, score_cap=2048,
                 cluster_npoint_thre=20, cluster_radius=0.25)
+# stage 1 in bench.py's `stage1_fast` configuration (cli/stage1_infer.py
+# --parallel_grouping --fast_knn); card vs CPU on a bench-shaped scene cut to
+# 2^15 points (the CPU's cluster kNN at the full 150,528 takes minutes)
+FAST = dict(sequential=False, fast_knn=True)
+FAST_CHECK_POINTS = 2 ** 15
+# KPConv semantic inference at the evaluation driver's defaults
+# (cli/stage2_test_semantic.py --model kpconv)
+KP_POINT_CAP, KP_FDIM, KP_DL0, KP_RADIUS, KP_VOTES, KP_SCENES = 2 ** 15, 64, 0.04, 2.0, 3, 2
+# the deformable offset kernels' scale: at 0 (their init) a deformable layer
+# is the rigid one
+KP_OFFSET_STD = 0.05
+# KPConv card vs CPU on one sphere: float32 sums in another order (cuBLAS);
+# logits within this share of their largest magnitude
+KP_LOGIT_RTOL = 1e-4
 
 
 def machine_id(torch) -> str:
@@ -411,6 +444,94 @@ def card_vs_cpu(torch, dev):
                                      f"{int((x != y).sum())} entries")
         print(f"card vs CPU, {mode} at N=2048 float32: integer fields equal, "
               f"float fields within 1e-5", flush=True)
+
+
+def run_stage1_fast_path(torch, dev, card):
+    """Stage-1 inference at bench.py's `stage1_fast` configuration
+    (parallel-rounds grouping; `fast_knn`, exact off the TPU), over the bench scenes
+    with the caps of run_main_path, timed beside the default configuration
+    in this call; then card vs CPU at float32 on a cut bench scene. Returns
+    K1's launches in the fast forwards."""
+    from seggroup_tpu_torch.data.synthetic import BENCH_SCENE, make_synthetic_scene
+    from seggroup_tpu_torch.models.seggroup import SegGroupGNN
+    from seggroup_tpu_torch.ops import cuda_fps
+    from seggroup_tpu_torch.ops import grouping as gr
+
+    scenes = [make_synthetic_scene(seed=i, **BENCH_SCENE).to(dev) for i in range(N_SCENES)]
+    kw = dict(cluster_cap=1024, knn_window=8192, knn_k=20, seed=0, device=dev)
+    models = {"default": SegGroupGNN(**kw), "fast": SegGroupGNN(**kw, **FAST)}
+    for model in models.values():
+        model(scenes[0], mode="ins_infer")  # warm-up
+    torch.cuda.synchronize()
+    secs, outs = {}, {}
+    for name in ("default", "fast", "default", "fast"):  # in turns
+        if name == "fast":
+            cuda_fps.launches = 0
+            gr.parallel_rounds = gr.parallel_cc_iterations = 0
+        t0 = time.perf_counter()
+        outs[name] = [models[name](sc, mode="ins_infer") for sc in scenes]
+        torch.cuda.synchronize()
+        secs.setdefault(name, []).append((time.perf_counter() - t0) / N_SCENES)
+        if name == "fast":
+            launches, rounds, cc_its = (cuda_fps.launches, gr.parallel_rounds,
+                                        gr.parallel_cc_iterations)
+    if launches < N_SCENES:
+        raise AssertionError(f"K1 launched {launches} times in {N_SCENES} fast forwards")
+    n = BENCH_SCENE["num_points"]
+    for i, out in enumerate(outs["fast"]):
+        if int(out.max_segment_size) > 1024 or int(out.max_cluster_size) > 8192:
+            raise AssertionError("a cap bound: the exact path did not run")
+        for name in ("final_root", "final_sem", "final_ins", "sem_layer2"):
+            if tuple(getattr(out, name).shape) != (n,):
+                raise AssertionError(f"{name} has shape {tuple(getattr(out, name).shape)}")
+        valid = scenes[i].point2seg < BENCH_SCENE["num_slots"]
+        if not bool((out.final_ins[valid] > 0).all()):
+            raise AssertionError(f"scene {i}: a valid point ends without an instance")
+        if not bool(((out.final_sem[valid] >= 1) & (out.final_sem[valid] <= 40)).all()):
+            raise AssertionError(f"scene {i}: final_sem out of 1..40")
+        if not (torch.isfinite(out.iou_sem).all() and torch.isfinite(out.acc).all()):
+            raise AssertionError("non-finite metrics")
+    clusters = {name: [int(torch.unique(o.final_root).numel()) for o in outs[name]]
+                for name in outs}
+    # one fenced forward of each on scene 0: where the time goes
+    splits = {}
+    for name, model in models.items():
+        phases: dict[str, float] = {}
+        t0 = time.perf_counter()
+        model(scenes[0], mode="ins_infer", phase_seconds=phases)
+        torch.cuda.synchronize()
+        rest = time.perf_counter() - t0 - sum(phases.values())
+        splits[name] = ", ".join(f"{k} {v:.4f} s" for k, v in sorted(phases.items())
+                                 ) + f", rest {rest:.4f} s"
+    # each ins_infer forward groups 3 times, each grouping in 2 passes
+    passes = 2 * 3 * N_SCENES
+    print(f"stage-1 ins_infer fast configuration (parallel-rounds grouping, fast_knn "
+          f"as the exact kNN) at {n} points (bf16): {secs['fast']} s/scene, default configuration "
+          f"{secs['default']} s/scene (each over {N_SCENES} scenes, in turns); "
+          f"{launches} K1 launches in {N_SCENES} forwards; {rounds / passes:.2f} parallel "
+          f"rounds and {cc_its / passes:.2f} CC iterations per grouping pass; final clusters "
+          f"per scene {clusters['fast']} (default {clusters['default']}); fenced forward of "
+          f"scene 0: fast {splits['fast']}; default {splits['default']}; on {card}",
+          flush=True)
+
+    cut = dict(BENCH_SCENE, num_points=FAST_CHECK_POINTS)
+    scene = make_synthetic_scene(seed=5, **cut)
+    kw = dict(cluster_cap=1024, knn_window=8192, compute_dtype=torch.float32, seed=1, **FAST)
+    t0 = time.perf_counter()
+    a = SegGroupGNN(device=dev, **kw)(scene.to(dev), mode="ins_infer")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    b = SegGroupGNN(device="cpu", **kw)(scene.to("cpu"), mode="ins_infer")
+    t2 = time.perf_counter()
+    for name in a._fields:
+        x, y = getattr(a, name).cpu(), getattr(b, name)
+        if not x.dtype.is_floating_point and not torch.equal(x, y):
+            raise AssertionError(f"fast configuration {name}: card vs CPU differ at "
+                                 f"{int((x != y).sum())} entries")
+    print(f"card vs CPU, fast configuration ins_infer at N={FAST_CHECK_POINTS} float32: "
+          f"integer fields equal; card {t1 - t0:.2f} s, CPU {t2 - t1:.2f} s with the "
+          f"models' builds", flush=True)
+    return launches
 
 
 def run_stage1_train_path(torch, dev, card):
@@ -794,6 +915,37 @@ def run_stage2_path(torch, dev, card):
           f"{split}; {launches} K2 launches ({launches / N_SCENES:.1f} per forward); peak "
           f"{peak_gib:.2f} GiB; dropped points {[rec['dropped'] for rec in log]}; mIoU "
           f"{miou:.4f}, mAP {np.nanmean(ap_class):.4f} (random weights); on {card}", flush=True)
+    return launches
+
+
+def run_semantic_driver(torch, dev, card):
+    """The repaired evaluation driver end to end on the card:
+    cli.stage2_test_semantic.main with `--synthetic 2`, MinkUNet at its
+    defaults, in a scratch working directory (its log and checkpoint
+    lookup). Returns K2's launches."""
+    from seggroup_tpu_torch.cli import stage2_test_semantic
+    from seggroup_tpu_torch.sparse import cuda_subm_conv
+
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as work:
+        os.chdir(work)
+        try:
+            cuda_subm_conv.launches = 0
+            t0 = time.perf_counter()
+            miou, _, ap = stage2_test_semantic.main(["--synthetic", "2"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = cuda_subm_conv.launches
+            log = open(os.path.join("checkpoints", "exp", "minkunet_test.log")).read()
+        finally:
+            os.chdir(cwd)
+    if launches < 2 * SUBM_PER_FORWARD:
+        raise AssertionError(f"K2 launched {launches} times in the driver's 2 forwards")
+    if "WARNING: random weights" not in log or "mIoU:" not in log:
+        raise AssertionError("the driver's log lacks its lines")
+    print(f"stage2_test_semantic.main --synthetic 2 (Res16UNet34C, capacity {CAPACITY}): "
+          f"{wall:.3f} s with the model's build, {launches} K2 launches, mIoU {miou:.4f}, "
+          f"mAP {np.nanmean(ap):.4f} (random weights); on {card}", flush=True)
     return launches
 
 
@@ -2111,6 +2263,110 @@ def pointgroup_train_card_vs_cpu(torch, dev, card):
     print(line, flush=True)
 
 
+def _kpconv_model(torch, dev, seed=0):
+    """KPFCNN at the driver's defaults, seeded, with nonzero offset kernels."""
+    from seggroup_tpu_torch.models.kpconv import KPFCNN, KPConvLayer
+
+    model = KPFCNN(num_classes=20, first_features_dim=KP_FDIM, dl0=KP_DL0, seed=seed,
+                   device=dev)
+    g = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, KPConvLayer) and mod.deformable:
+                mod.offset_kernel.copy_(torch.randn(mod.offset_kernel.shape, generator=g)
+                                        * KP_OFFSET_STD)
+    return model
+
+
+def run_kpconv_path(torch, dev, card):
+    """KPConv semantic inference at the evaluation driver's defaults over 2
+    bench scenes with 3 votes, through cli.stage2_test_semantic's
+    test_semantic_kpconv, at seeded weights with nonzero offset kernels;
+    then the pyramid and the logits of one sphere on the card and on the
+    CPU."""
+    from seggroup_tpu_torch.cli.stage2_common import scene_to_training_tuple
+    from seggroup_tpu_torch.cli.stage2_test_semantic import (KPCONV_LAYERS, kpconv_level_caps,
+                                                             test_semantic_kpconv)
+    from seggroup_tpu_torch.data.potentials import PotentialSampler
+    from seggroup_tpu_torch.data.synthetic import BENCH_SCENE, make_synthetic_scene
+    from seggroup_tpu_torch.models.kpconv import build_pyramid, kernel_point_positions
+
+    t0 = time.perf_counter()
+    kernel_point_positions(15)
+    print(f"KPConv kernel points (numpy, once a process): {time.perf_counter() - t0:.3f} s",
+          flush=True)
+    model = _kpconv_model(torch, dev)
+    scenes = []
+    for i in range(KP_SCENES):
+        name = f"bench{i}"
+        scenes.append((name, *scene_to_training_tuple(
+            make_synthetic_scene(seed=i, **BENCH_SCENE), {}, None, name, False)))
+    # the first sphere of scene 0, as the driver draws it: the warm-up, and
+    # the card vs CPU comparison below
+    _, c, col, _ = scenes[0]
+    center = PotentialSampler([c], in_radius=KP_RADIUS, seed=0).next_center()[1]
+    sel = np.where(((c - center) ** 2).sum(1) < KP_RADIUS ** 2)[0][:KP_POINT_CAP]
+    pts = np.zeros((KP_POINT_CAP, 3), np.float32)
+    feats = np.ones((KP_POINT_CAP, 4), np.float32)
+    pts[: len(sel)] = c[sel]
+    feats[: len(sel), 1:] = col[sel] / 255.0
+    valid = np.arange(KP_POINT_CAP) < len(sel)
+
+    def sphere(d, m):
+        pyr = build_pyramid(torch.from_numpy(pts).to(d),
+                            torch.zeros(KP_POINT_CAP, dtype=torch.int32, device=d),
+                            torch.from_numpy(valid).to(d), KPCONV_LAYERS, KP_DL0,
+                            level_caps=kpconv_level_caps(KP_POINT_CAP))
+        with torch.no_grad():
+            logits, reg = m(pyr, torch.from_numpy(feats).to(d))
+        return [[t.cpu() for t in lvl] for lvl in pyr], logits.cpu(), float(reg)
+
+    on_card = sphere(dev, model)  # warm-up
+    torch.cuda.synchronize()
+    phases: dict[str, float] = {}
+    log: list = []
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    miou, _, ap = test_semantic_kpconv(model, scenes, KP_POINT_CAP, KP_RADIUS, KP_VOTES, 20,
+                                       phase_seconds=phases, scene_log=log)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    for rec in log:
+        if rec["coverage"] != 1.0 or not rec["logits_finite"]:
+            raise AssertionError(f"{rec['name']}: coverage {rec['coverage']}, finite "
+                                 f"{rec['logits_finite']}")
+    spheres = [rec["spheres"] for rec in log]
+    over = np.mean([rec["overflow"] for rec in log], axis=0)
+    split = ", ".join(f"{k} {v / KP_SCENES:.4f} s" for k, v in sorted(phases.items()))
+    print(f"KPConv semantic inference (KPFCNN, first_features_dim {KP_FDIM}, dl0 {KP_DL0}, "
+          f"point_cap {KP_POINT_CAP}, in_radius {KP_RADIUS}, {KP_VOTES} votes) over "
+          f"{KP_SCENES} scenes of {BENCH_SCENE['num_points']} points: {wall / KP_SCENES:.4f} "
+          f"s/scene, spheres per scene {spheres} ({wall / sum(spheres):.4f} s/sphere); per "
+          f"scene, fenced: {split}; neighbour-overflow rate per level {over.round(4).tolist()}; "
+          f"peak {peak_gib:.2f} GiB; mIoU {miou:.4f}, mAP {np.nanmean(ap):.4f} (random "
+          f"weights); on {card}", flush=True)
+
+    # card vs CPU on that sphere
+    (pa, la, ra), (pb, lb, rb) = on_card, sphere(torch.device("cpu"),
+                                                 _kpconv_model(torch, "cpu"))
+    for i, (x, y) in enumerate(zip(pa, pb)):
+        for name, s, t in zip(("points", "batch", "valid", "neighbors", "pools", "upsamples"),
+                              x, y):
+            if not torch.equal(s, t):
+                raise AssertionError(f"KPConv pyramid level {i} {name}: card vs CPU differ")
+    err = float((la - lb).abs().max())
+    scale = float(lb.abs().max())
+    if not err <= KP_LOGIT_RTOL * scale or abs(ra - rb) > KP_LOGIT_RTOL * abs(rb):
+        raise AssertionError(f"KPConv logits card vs CPU differ by {err} of {scale}, "
+                             f"regulariser {ra} vs {rb}")
+    print(f"KPConv card vs CPU on one sphere ({len(sel)} points): the pyramid's arrays "
+          f"equal at all {KPCONV_LAYERS} levels, logits within {err:.3g} of max "
+          f"{scale:.4g} (bound {KP_LOGIT_RTOL} of it), regulariser {ra:.6g} vs {rb:.6g}",
+          flush=True)
+    return {"spheres": spheres, "seconds_per_scene": wall / KP_SCENES}
+
+
 def build_all() -> None:
     """Build every kernel, one nvcc per source, all started together."""
     from seggroup_tpu_torch.ops import cuda_cc, cuda_fps
@@ -2154,44 +2410,63 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}, {machine_id(torch)}", flush=True)
 
-    build_all()
+    seconds: dict[str, float] = {}
 
-    k1 = check_fps(torch, dev, card)
-    bench = bench_rulebooks(torch, dev)
-    k2 = check_subm_conv(torch, dev, card, bench)
-    k3 = check_subm_dw(torch, dev, card, bench)
-    launches = run_main_path(torch, dev, card)
-    card_vs_cpu(torch, dev)
-    train_fps = run_stage1_train_path(torch, dev, card)
-    stage1_train_card_vs_cpu(torch, dev, card)
-    inference_k2 = run_stage2_path(torch, dev, card)
-    minkunet_card_vs_cpu(torch, dev)
-    train = run_train_path(torch, dev, card)
-    train_card_vs_cpu(torch, dev)
-    overfit_check(torch, dev, card)
+    def phase(name, fn, *args):
+        """fn(*args), its wall seconds kept under `name` for the summary."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t0
+        return out
+
+    phase("build", build_all)
+    k1 = phase("K1 check", check_fps, torch, dev, card)
+    bench = phase("K2/K3 rulebooks", bench_rulebooks, torch, dev)
+    k2 = phase("K2 check", check_subm_conv, torch, dev, card, bench)
+    k3 = phase("K3 check", check_subm_dw, torch, dev, card, bench)
+    launches = phase("stage-1 inference", run_main_path, torch, dev, card)
+    phase("stage-1 card vs CPU", card_vs_cpu, torch, dev)
+    fast_fps = phase("stage-1 fast", run_stage1_fast_path, torch, dev, card)
+    train_fps = phase("stage-1 training", run_stage1_train_path, torch, dev, card)
+    phase("stage-1 training card vs CPU", stage1_train_card_vs_cpu, torch, dev, card)
+    inference_k2 = phase("MinkUNet inference", run_stage2_path, torch, dev, card)
+    driver_k2 = phase("semantic driver", run_semantic_driver, torch, dev, card)
+    phase("MinkUNet card vs CPU", minkunet_card_vs_cpu, torch, dev)
+    train = phase("MinkUNet training", run_train_path, torch, dev, card)
+    phase("MinkUNet training card vs CPU", train_card_vs_cpu, torch, dev)
+    phase("MinkUNet overfit", overfit_check, torch, dev, card)
 
     from seggroup_tpu_torch.cli.stage2_test_pointgroup import make_eval_model
 
     pg_model = make_eval_model(PG_M, PG_VOXEL_CAP, dev)
-    k4 = check_cc_sweep(torch, dev, card, pg_model)
-    check_subm_conv_pointgroup(torch, dev, card)
-    k3_pg_err, k3_pg = check_subm_dw_pointgroup(torch, dev, card)
-    pointgroup = run_pointgroup_path(torch, dev, card, pg_model)
-    pointgroup_card_vs_cpu(torch, dev)
+    k4 = phase("K4 check", check_cc_sweep, torch, dev, card, pg_model)
+    phase("K2 PointGroup pairs", check_subm_conv_pointgroup, torch, dev, card)
+    k3_pg_err, k3_pg = phase("K3 PointGroup pairs", check_subm_dw_pointgroup, torch, dev, card)
+    pointgroup = phase("PointGroup inference", run_pointgroup_path, torch, dev, card, pg_model)
+    phase("PointGroup card vs CPU", pointgroup_card_vs_cpu, torch, dev)
     del pg_model
-    pg_train = run_pointgroup_train_path(torch, dev, card)
-    pointgroup_train_checked_step(torch, dev)
-    pointgroup_train_card_vs_cpu(torch, dev, card)
+    pg_train = phase("PointGroup training", run_pointgroup_train_path, torch, dev, card)
+    phase("PointGroup checked step", pointgroup_train_checked_step, torch, dev)
+    phase("PointGroup training card vs CPU", pointgroup_train_card_vs_cpu, torch, dev, card)
+    phase("KPConv inference", run_kpconv_path, torch, dev, card)
+    print("wall seconds by phase: " + "; ".join(f"{k} {v:.2f}" for k, v in seconds.items())
+          + f"; total {sum(seconds.values()):.2f}", flush=True)
 
-    # this slice's path is PointGroup training (K2, K3, K4); each kernel's
-    # counts on the other paths stand beside it. K1 runs on the stage-1
-    # paths only, so its count is stage-1 training's.
-    k1["launches"] = train_fps
+    # this slice's paths are stage-1 inference in the fast configuration
+    # (K1), the repaired evaluation driver (K2) and KPConv inference (no
+    # kernel); K3 and K4 run on none of them and keep PointGroup training's
+    # counts. Each kernel's counts on the other paths stand beside them.
+    k1["launches"] = fast_fps
     k1["launches_by_path"] = {"stage1_inference": launches["masked_fps"],
-                              "stage1_training": train_fps, "pointgroup_training": 0}
+                              "stage1_inference_fast": fast_fps,
+                              "stage1_training": train_fps, "pointgroup_training": 0,
+                              "kpconv_inference": 0}
     prepare, clustering = pg_train[False], pg_train[True]
-    k2["launches"] = prepare["subm_conv"] + clustering["subm_conv"]
+    k2["launches"] = driver_k2
     k2["launches_by_path"] = {"stage2_semantic_inference": inference_k2,
+                              "stage2_test_semantic_driver": driver_k2,
+                              "kpconv_inference": 0,
                               "stage2_training": train["subm_conv"],
                               "pointgroup_inference": pointgroup["subm_conv"],
                               "pointgroup_training_prepare": prepare["subm_conv"],

@@ -6,8 +6,8 @@ buckets of the stage-1 auto caps.
 The drivers run one scene at a time on one device, so the JAX side's
 batching helpers (`stack_scenes`, `batches`) have no counterpart; its
 `export_scene` is `infer.export_scene`. `--fast_knn` and
-`--parallel_grouping` reach the model, which raises: their code paths are
-not ported."""
+`--parallel_grouping` reach the stage-1 model as `fast_knn=True` and
+`sequential=False`."""
 
 from __future__ import annotations
 
@@ -49,11 +49,12 @@ def add_common_args(p):
     p.add_argument("--tensorboard", action="store_true",
                    help="write tensorboard scalars next to the run log")
     p.add_argument("--fast_knn", action="store_true",
-                   help="approximate top-k inside the cluster kNN (not ported: "
-                        "the stage-1 model raises)")
+                   help="the approximate top-k inside the cluster kNN; off the "
+                        "TPU XLA computes it exactly, so this selects the "
+                        "exact top-k, kept for parity with the JAX driver")
     p.add_argument("--parallel_grouping", action="store_true",
                    help="the parallel-rounds merge engine instead of the "
-                        "sequential one (not ported: the stage-1 model raises)")
+                        "sequential one")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; the card unless 'cpu' is asked for")
 

@@ -7,8 +7,10 @@ dual clustering, the ScoreNet and its loss; validation on held-out scenes
 with the best checkpoint kept; a STOP file.
 
 A host thread (utils/prefetch.py) builds each step's batch ahead of the
-card: the scenes drawn and augmented with the generator seeded by (seed,
-step), cropped and padded to the point cap, voxelised
+card: the scenes drawn and augmented, in step order, from one generator
+seeded by `seed`, as the JAX driver's single prefetch worker draws them
+(validation draws from its own, seeded by seed + 100); cropped and padded
+to the point cap, voxelised
 (`host_voxelize_plan`) and packed into the compact wire format, whose
 colours are float16 as the JAX trainer's default `--plan_mode device`
 ships them. The main thread moves the batch to the card and runs
@@ -16,7 +18,10 @@ ships them. The main thread moves the batch to the card and runs
 backward through the submanifold convs' kernels (K2 for the data gradient,
 K3 for the weight gradient), and the optimizer step; the clustering runs
 kernel K4. The proposals' jitter comes from a generator seeded by seed + 1,
-three uniforms a step, so a resumed run draws what an unbroken one would.
+three uniforms a step. A checkpoint holds the batch generator's state just
+after its step's draw (the prefetcher has drawn further by then), so a
+resumed run draws what an unbroken one would; the JAX driver restarts its
+generator on resume instead.
 
     python -m seggroup_tpu_torch.cli.stage2_train_pointgroup --synthetic 8 --steps 50
     python -m seggroup_tpu_torch.cli.stage2_train_pointgroup --data_root ... --pseudo_root results/exp
@@ -196,6 +201,9 @@ def main(argv: Sequence[str] | None = None):
                                                  log=io.cprint)
         model.load_state_dict(state)
         io.cprint(f"pretrain init: {n_loaded}/{n_tot} tensors from {args.pretrain}")
+    # one generator draws every training batch, in step order, on the single
+    # prefetch worker (JAX: cli/stage2_train_pointgroup.py `sample_batch`)
+    batch_rng = np.random.default_rng(args.seed)
     start_it = 0
     if args.resume:
         restored = ckpt.restore(map_location=dev)
@@ -203,12 +211,24 @@ def main(argv: Sequence[str] | None = None):
             model.load_state_dict(restored["model"])
             optimizer.load_state_dict(restored["optimizer"])
             scheduler.load_state_dict(restored["scheduler"])
+            if "batch_rng" not in restored:
+                raise ValueError(
+                    "this checkpoint predates the single training batch generator "
+                    "and holds no generator state, so a resumed run cannot continue "
+                    "its batch stream bit for bit; start a fresh run")
+            batch_rng.bit_generator.state = restored["batch_rng"]
             start_it = ckpt.latest_step()
             io.cprint(f"resumed from step {start_it} (lr continues at {schedule(start_it):.4g})")
 
-    def save_state(it):
+    def draw_batch(_):
+        # the prefetcher runs ahead, so the generator's live state is a later
+        # step's: each batch carries the state its draw left
+        batch = make_batch(batch_rng, train_idx, True)
+        return batch, batch_rng.bit_generator.state
+
+    def save_state(it):  # after step `it`, whose draw left `rng_state`
         ckpt.save(it, {"model": model.state_dict(), "optimizer": optimizer.state_dict(),
-                       "scheduler": scheduler.state_dict()})
+                       "scheduler": scheduler.state_dict(), "batch_rng": rng_state})
 
     val_rng = np.random.default_rng(args.seed + 100)
 
@@ -229,9 +249,8 @@ def main(argv: Sequence[str] | None = None):
     jitter_gen = torch.Generator().manual_seed(args.seed + 1)
     for _ in range(start_it):
         torch.rand(3, generator=jitter_gen)
-    prefetch = HostPrefetcher(
-        lambda s: make_batch(np.random.default_rng((args.seed, s + 1)), train_idx, True),
-        depth=args.prefetch_depth, workers=1, start=start_it)
+    prefetch = HostPrefetcher(draw_batch, depth=args.prefetch_depth, workers=1,
+                              start=start_it)
     best_val = float("inf")
     t0 = time.time()
     it = start_it
@@ -239,7 +258,8 @@ def main(argv: Sequence[str] | None = None):
         for it in range(start_it + 1, args.steps + 1):
             jitter = torch.rand(3, generator=jitter_gen).to(dev)
             clustering = it > args.prepare_steps
-            batch = unpack_pg_batch(next(prefetch), args.voxel_cap, dev)
+            raw, rng_state = next(prefetch)
+            batch = unpack_pg_batch(raw, args.voxel_cap, dev)
             loss, aux, _ = train_step(model, optimizer, scheduler, batch, clustering, jitter)
             if it % 10 == 0 or it == args.steps:
                 parts = "  ".join(f"{k} {float(v):.4f}" for k, v in aux.items())

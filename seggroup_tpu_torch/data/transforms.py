@@ -19,7 +19,6 @@ FMA, so the two agree to about 1e-6 m, not bit for bit.
 from __future__ import annotations
 
 import numpy as np
-import scipy.ndimage
 
 # the reference ScanNet training recipe's parameters
 ROTATION_BOUND = 2 * np.pi  # full upright rotation
@@ -55,18 +54,30 @@ def elastic_distortion(coords: np.ndarray, rng: np.random.Generator,
     """Blurred-noise displacement field (reference transforms.py:203-235 /
     pointgroup scannetv2_inst.py:81-98).
 
-    The box blurs run as separable float32 correlations (same kernel as the
+    The box blurs run as separable 3-tap correlations (same kernel as the
     reference's ones(3)/3 convolve passes; a symmetric kernel makes convolve
     == correlate)."""
     mins = coords.min(0)
     dims = ((coords - mins).max(0) // granularity).astype(int) + 3
     noise = rng.standard_normal(size=(*dims, 3), dtype=np.float32)
-    k = np.array([1 / 3, 1 / 3, 1 / 3], np.float32)
     for _ in range(2):
         for axis in range(3):
-            noise = scipy.ndimage.correlate1d(noise, k, axis=axis,
-                                              mode="constant")
+            noise = _box3(noise, axis)
     return _elastic_interp(coords, mins, granularity, magnitude, noise)
+
+
+def _box3(x: np.ndarray, axis: int) -> np.ndarray:
+    """The 3-tap box correlation along `axis` with zeros past the ends, as
+    scipy.ndimage.correlate1d(x, float32 [1/3] * 3, mode="constant")
+    computes it: in float64, the centre tap plus the sum of the two outer
+    ones times the weight (its symmetric-kernel path), cast back to x's
+    dtype."""
+    w = np.float64(np.float32(1 / 3))
+    xd = np.moveaxis(x, axis, 0).astype(np.float64)
+    pad = np.zeros((xd.shape[0] + 2,) + xd.shape[1:])
+    pad[1:-1] = xd
+    out = pad[1:-1] * w + (pad[2:] + pad[:-2]) * w
+    return np.moveaxis(out.astype(x.dtype), 0, axis)
 
 
 def _elastic_interp(coords: np.ndarray, mins: np.ndarray, granularity: float,

@@ -1,6 +1,6 @@
 """Weights of the JAX models -> state_dicts of the port's: SegGroupGNN
-(`params_from_flax`), MinkUNet (`minkunet_params_from_flax`) and PointGroup
-(`pointgroup_params_from_flax`).
+(`params_from_flax`), MinkUNet (`minkunet_params_from_flax`), PointGroup
+(`pointgroup_params_from_flax`) and KPFCNN (`kpconv_params_from_flax`).
 
 The JAX variables are `{"params": ..., "batch_stats": ...}` trees of numpy
 arrays (`jax.tree.map(np.asarray, variables)`). Flax `Dense` kernels are
@@ -89,4 +89,14 @@ def pointgroup_params_from_flax(variables: Mapping) -> dict[str, torch.Tensor]:
     transposed into `.weight`, BatchNorm parameters and statistics as they
     are. A tree initialised without clustering has no ScoreNet entries; the
     caller then loads with `strict=False`."""
+    return minkunet_params_from_flax(variables)
+
+
+def kpconv_params_from_flax(variables: Mapping) -> dict[str, torch.Tensor]:
+    """state_dict of models.kpconv.KPFCNN from the flax KPFCNN's
+    `{"params", "batch_stats"}` trees. The port keeps the flax names
+    (`b0_kp/kernel`, `b5/kp/offset_kernel`, `b11_unary/kernel`, `head_bn/scale`,
+    ...), so the rule is MinkUNet's: the (P, Cin, Cout) `kernel` and
+    `offset_kernel` as they are, Dense kernels (2-D) transposed into
+    `.weight`, TFBatchNorm `scale`/`bias` and `mean`/`var` as they are."""
     return minkunet_params_from_flax(variables)

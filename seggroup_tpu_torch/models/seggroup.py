@@ -3,17 +3,20 @@
 The same forward as the JAX module over the same fixed-shape padded
 tensors: DGCNN edge-conv encoders as batched Linear layers over kNN
 gathers, mask-aware BatchNorm, one masked FPS over every cluster at once
-(kernel K1 on the card), and the sequential grouping engine of
-ops.grouping.
+(kernel K1 on the card), and the grouping engine of ops.grouping:
+the sequential one by default, the parallel-rounds one with
+`sequential=False`.
 
 Three modes, as the JAX module's: `train` (the full grouping, BatchNorm
 batch statistics that update the running ones, classifier dropout and the
 label-smoothed loss, with autograd), `ins_infer` and `sem_infer` (running
 statistics, no autograd). Gradients flow where JAX's do: through the
 cluster-feature max-pools, the similarity matrix and the GCNs, not through
-the distances that decide the grouping. The parallel-rounds grouping, the
-approximate kNN and point sharding are not ported; asking for them raises
-NotImplementedError.
+the distances that decide the grouping. `fast_knn=True` is accepted for
+parity with the JAX module: it asks there for the approximate top-k, which
+XLA computes exactly off the TPU, so here it selects the exact top-k that
+`fast_knn=False` runs (ops.knn.cluster_knn). Point sharding (`shard_axis`)
+is not ported; asking for it raises NotImplementedError.
 
 Weak-label conventions: weak ins/sem are 0-based with -1 = unlabeled;
 exports add +1 so 0 means unannotated."""
@@ -324,10 +327,6 @@ class SegGroupGNN(nn.Module):
         device: str | torch.device = "cuda",
     ):
         super().__init__()
-        if not sequential:
-            raise NotImplementedError("parallel-rounds grouping is not ported")
-        if fast_knn:
-            raise NotImplementedError("approximate kNN is not ported")
         if shard_axis is not None:
             raise NotImplementedError("point sharding is not ported")
         dev = resolve_device(device)
@@ -335,6 +334,8 @@ class SegGroupGNN(nn.Module):
         self.th_structural_sem_infer = th_structural_sem_infer
         self.th_semantic = th_semantic
         self.gcn_alpha = gcn_alpha
+        self.sequential = sequential
+        del fast_knn  # the exact top-k either way; see the module docstring
         self.knn_k = knn_k
         self.knn_window = knn_window
         self.knn_small_window = knn_small_window
@@ -410,7 +411,7 @@ class SegGroupGNN(nn.Module):
         d1 = gr.edge_distances(feat1.detach(), g, edges)
         th1 = self.th_structural_sem_infer if mode == "sem_infer" else self.th_structural
         with phase("grouping"):
-            g, _ = gr.group_nearby_clusters_sequential(g, edges, ev, d1, th1)
+            g, _ = self._group(g, edges, ev, d1, th1)
         edges, ev = gr.normalize_edges(g, edges, ev)
         feat2 = gr.aggregate_cluster_feature(feat1, g, act1)  # (S, 128)
         roots_l2 = roots_of(g)
@@ -496,8 +497,8 @@ class SegGroupGNN(nn.Module):
         with phase("cluster_knn"):
             knn_idx = cluster_knn(
                 pts[:, :3], torch.where(pt_valid, roots, _PAD_CLUSTER),
-                k=self.knn_k, window=self.knn_window, valid=pt_valid,
-                small_window=self.knn_small_window)
+                k=self.knn_k, window=self.knn_window,
+                valid=pt_valid, small_window=self.knn_small_window)
         center = segment_mean(pts[:, :3], roots, s)  # (S, 3)
         centered = pts[:, :3] - center[torch.clamp(roots, max=s - 1)]
         data9 = torch.cat([pts, centered], dim=-1)  # (N, 9)
@@ -511,10 +512,14 @@ class SegGroupGNN(nn.Module):
         d = gr.edge_distances(feat.detach(), g, edges)
         act_before = gr.active_mask(g)
         with phase("grouping"):
-            g, _ = gr.group_nearby_clusters_sequential(g, edges, ev, d,
-                                                       self.th_semantic)
+            g, _ = self._group(g, edges, ev, d, self.th_semantic)
         edges, ev = gr.normalize_edges(g, edges, ev)
         return feat, g, edges, ev, act_before
+
+    def _group(self, g, edges, ev, dists, th):
+        fn = (gr.group_nearby_clusters_sequential if self.sequential
+              else gr.group_nearby_clusters)
+        return fn(g, edges, ev, dists, th)
 
     @staticmethod
     def _export_labels(g, roots, pt_valid, s):

@@ -15,8 +15,10 @@
 
 Every distance is formed in XLA's CPU order (ops/fma.py) and every top-k
 orders equal distances by ascending index, as `lax.top_k` does, so indices
-equal the JAX ones exactly. The approximate top-k (`approx=True`) and the
-single-set `ball_query` are not ported."""
+equal the JAX ones exactly. The JAX side's approximate top-k
+(`approx=True`) is the exact one off the TPU, so `cluster_knn` has no such
+option. The single-set `ball_query` is not
+ported."""
 
 from __future__ import annotations
 
@@ -119,7 +121,6 @@ def cluster_knn(
     k: int = 20,
     row_block: int = 1024,
     window: int = 16384,
-    approx: bool = False,
     valid: torch.Tensor | None = None,
     small_window: int | None = None,
 ) -> torch.Tensor:
@@ -137,14 +138,20 @@ def cluster_knn(
                  row's cluster start; bit-identical to the big window there.
                  None = window // 4 when window >= 4096; 0 disables.
 
+    The JAX side's `approx=True` branch (`lax.approx_max_k(-d, k,
+    recall_target=0.95)`) has no counterpart here: XLA approximates only on
+    the TPU, and elsewhere computes the exact top-k, values and indices equal
+    to `lax.top_k`'s with the lowest index first on ties (checked on
+    tie-heavy rows by tests/test_torch_knn.py). So that branch is this
+    function. The top-k is `_iter_min_topk`, whose ties go as `lax.top_k`'s;
+    `torch.topk` leaves the order of ties open.
+
     Returns (N, k) int32 indices in the original point order. Rows whose
     cluster has < k members repeat the self index. Row blocks are processed
     in batches (the result of each block is independent of the others)."""
     n, dim = points.shape
     if n % row_block:
         raise ValueError(f"pad N={n} to a multiple of row_block={row_block}")
-    if approx:
-        raise NotImplementedError("approximate top-k is not ported")
     if small_window is None:
         small_window = window // 4 if window >= 4096 else 0
     small_window = 0 if small_window >= window else small_window
@@ -336,12 +343,15 @@ def ball_query_pair_windowed(support: torch.Tensor, support_batch: torch.Tensor,
 
     order_s = torch.argsort(s_key, stable=True)
     sk = s_key[order_s]
+    # a window wider than the support tests only pad rows past its end: the
+    # first `width` columns hold every real candidate, at the same columns
+    width = min(window, ns)
     # sorted, window-padded support (pad rows: key MAX, far coords)
-    sxyz = torch.cat([support[order_s], support.new_full((window, 3), 3e38)])
-    sb = torch.cat([sb32[order_s], sb32.new_full((window,), -1)])
-    skp = torch.cat([sk, sk.new_full((window,), INT32_MAX)])
+    sxyz = torch.cat([support[order_s], support.new_full((width, 3), 3e38)])
+    sb = torch.cat([sb32[order_s], sb32.new_full((width,), -1)])
+    skp = torch.cat([sk, sk.new_full((width,), INT32_MAX)])
     ord_pad = torch.cat([order_s.to(torch.int32),
-                         torch.full((window,), ns, dtype=torch.int32, device=dev)])
+                         torch.full((width,), ns, dtype=torch.int32, device=dev)])
 
     order_q = torch.argsort(q_key, stable=True)
     n_tiles = -(-nq // tile)
@@ -361,11 +371,11 @@ def ball_query_pair_windowed(support: torch.Tensor, support_batch: torch.Tensor,
 
     r2 = radius * radius
     big = 1e30
-    cols = torch.arange(window, device=dev)
+    cols = torch.arange(width, device=dev)
     nbrs = torch.empty((n_tiles, tile, k), dtype=torch.int32, device=dev)
     counts = torch.empty((n_tiles, tile), dtype=torch.int32, device=dev)
     over = torch.empty((n_tiles, tile), dtype=torch.bool, device=dev)
-    per_batch = max(1, _WINDOW_ELEMS // (tile * window))
+    per_batch = max(1, _WINDOW_ELEMS // (tile * width))
     for t0 in range(0, n_tiles, per_batch):
         ts = slice(t0, t0 + per_batch)
         win = w0[ts, None] + cols  # (T, window) rows of the padded support

@@ -152,6 +152,37 @@ def test_group_nearby_sequential_matches_jax(seed, th, budget):
     assert (np.asarray(gj.root) != np.arange(512)).sum() > 100  # merges happened
 
 
+@pytest.mark.parametrize("seed,th,n_labeled", [
+    (0, 5.0, 60), (1, 2.0, 60), (2, 9.0, 120), (3, 5.0, 0), (4, 7.0, 300)])
+def test_group_nearby_parallel_matches_jax(seed, th, n_labeled):
+    """The parallel-rounds engine equals JAX's exactly, label conflicts
+    included; with conflicts its partition differs from the sequential
+    engine's, so the test holds the parallel engine and not the other."""
+    counts, ins, sem, edges, ev, dists = _graph_case(seed, n_labeled=n_labeled)
+    gj, gt = _graphs(counts, ins, sem)
+    run = jax.jit(lambda g, e, v, d: J.group_nearby_clusters(g, e, v, d, th))
+    gj2, cj = run(gj, jnp.asarray(edges), jnp.asarray(ev), jnp.asarray(dists))
+    T.parallel_rounds = 0
+    gt2, ct = T.group_nearby_clusters(
+        gt, torch.from_numpy(edges), torch.from_numpy(ev), torch.from_numpy(dists), th)
+    _assert_graph_equal(gj2, gt2)
+    np.testing.assert_array_equal(ct.numpy(), np.asarray(cj))
+    assert T.parallel_rounds >= 2  # one or more rounds in each of the two passes
+    assert (np.asarray(gj2.root) != np.arange(512)).sum() > 100  # merges happened
+    gs, _ = T.group_nearby_clusters_sequential(
+        gt, torch.from_numpy(edges), torch.from_numpy(ev), torch.from_numpy(dists), th)
+    def partition(root):  # each slot's class named by its least member
+        root = root.numpy()
+        least = np.full(root.shape, root.shape[0])
+        np.minimum.at(least, root, np.arange(root.shape[0]))
+        return least[root]
+
+    if n_labeled == 0:  # no label, no conflict: the two engines' partitions agree
+        np.testing.assert_array_equal(partition(gs.root), partition(gt2.root))
+    elif seed in (0, 2, 4):
+        assert (partition(gs.root) != partition(gt2.root)).any()
+
+
 @pytest.mark.parametrize("budget", [None, 8])
 def test_absorb_small_clusters_matches_jax(budget):
     counts, ins, sem, edges, ev, _ = _graph_case(3)

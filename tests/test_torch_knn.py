@@ -104,11 +104,40 @@ def test_cluster_knn_window_truncation_matches_jax():
     assert set(got[rows].ravel()) <= set(rows)
 
 
-def test_cluster_knn_refuses_what_is_not_ported():
-    pts, cid, valid = _cluster_case(8)
-    with pytest.raises(NotImplementedError):
-        T.cluster_knn(torch.from_numpy(pts), torch.from_numpy(cid), approx=True,
-                      row_block=256)
+def test_approx_max_k_is_top_k_off_the_tpu():
+    """The probe behind the port's `cluster_knn` having no `approx` option: off the TPU, jitted
+    `lax.approx_max_k` gives `lax.top_k`'s values and indices, lowest index
+    first on ties, on integer-valued rows full of ties and on normal rows."""
+    rng = np.random.default_rng(12)
+    for x in (rng.integers(0, 6, (64, 300)).astype(np.float32),
+              rng.normal(size=(256, 2048)).astype(np.float32)):
+        av, ai = jax.jit(lambda a: jax.lax.approx_max_k(a, 20, recall_target=0.95))(x)
+        tv, ti = jax.jit(lambda a: jax.lax.top_k(a, 20))(x)
+        np.testing.assert_array_equal(np.asarray(av), np.asarray(tv))
+        np.testing.assert_array_equal(np.asarray(ai), np.asarray(ti))
+
+
+@pytest.mark.parametrize("ties", [False, True])
+def test_cluster_knn_approx_matches_jax(ties):
+    """The JAX side's `approx=True` branch (approx_max_k) against the port's
+    `cluster_knn`, which has only the exact top-k; with `ties`, points on a
+    coarse integer grid make most distances tie."""
+    pts, cid, valid = _cluster_case(9)
+    if ties:
+        pts = np.round(pts * 1.5).astype(np.float32)
+    kw = dict(k=8, row_block=256, window=2048)
+    want = np.asarray(jax.jit(
+        lambda p, c, v: J.cluster_knn(p, c, valid=v, approx=True, **kw))(
+        jnp.asarray(pts), jnp.asarray(cid), jnp.asarray(valid)))
+    got = T.cluster_knn(torch.from_numpy(pts), torch.from_numpy(cid),
+                        valid=torch.from_numpy(valid), **kw).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+def test_cluster_knn_refuses_unpadded_rows():
+    pts, cid, _ = _cluster_case(8)
     with pytest.raises(ValueError):
         T.cluster_knn(torch.from_numpy(pts[:100]), torch.from_numpy(cid[:100]),
                       row_block=256)
+
+

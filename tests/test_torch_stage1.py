@@ -10,6 +10,8 @@ cluster clouds agree to 1e-5: matmuls and the mean over a cloud's 64 points
 sum in another order, and the clouds' scaling by their extent magnifies
 that."""
 
+import copy
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -22,6 +24,7 @@ from seggroup_tpu_torch.data.synthetic import make_synthetic_scene
 from seggroup_tpu_torch.infer import entry, infer_scenes
 from seggroup_tpu_torch.models import seggroup as T
 from seggroup_tpu_torch.models.convert import params_from_flax
+from seggroup_tpu_torch.ops import grouping as gr
 
 torch.set_num_threads(1)
 
@@ -256,8 +259,53 @@ def test_evaluate_labels_matches_jax():
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-6, atol=0)
 
 
-@pytest.mark.parametrize("kw", [dict(sequential=False), dict(fast_knn=True),
-                                dict(shard_axis="points")])
+@pytest.mark.parametrize("kw", [dict(shard_axis="points")])
 def test_unported_options_raise(kw):
     with pytest.raises(NotImplementedError):
         T.SegGroupGNN(device="cpu", **kw)
+
+
+FAST = dict(sequential=False, fast_knn=True)
+
+
+@pytest.fixture(scope="module")
+def fast_models(jax_model):
+    """bench.py's `stage1_fast` configuration (the parallel-rounds grouping
+    and the approximate kNN) on both sides, at the shared weights."""
+    _, variables = jax_model
+    jm = J.SegGroupGNN(compute_dtype=jnp.float32, **MODEL, **FAST)
+    tm = T.SegGroupGNN(compute_dtype=torch.float32, device="cpu", **MODEL, **FAST)
+    tm.load_state_dict(params_from_flax(variables), strict=True)
+    return jm, variables, tm
+
+
+@pytest.mark.parametrize("mode", ["ins_infer", "sem_infer"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_fast_forward_matches_jax(seed, mode, fast_models):
+    """At `sequential=False, fast_knn=True` every integer output equals
+    the jitted JAX forward's, the float ones within 1e-6."""
+    jm, variables, tm = fast_models
+    want = jax.tree.map(np.asarray, jax.jit(
+        lambda v, sc: jm.apply(v, sc, mode=mode, train=False))(
+            variables, jax_scene(seed=seed, **SCENE)))
+    gr.parallel_rounds = 0
+    got = tm(make_synthetic_scene(seed=seed, **SCENE).to("cpu"), mode=mode)
+    assert gr.parallel_rounds > 0
+    for name in J.Stage1Output._fields:
+        a, b = np.asarray(getattr(want, name)), getattr(got, name).numpy()
+        assert a.shape == b.shape, name
+        if a.dtype.kind == "f":
+            np.testing.assert_allclose(b, a, rtol=1e-6, atol=1e-6, err_msg=name)
+        else:
+            np.testing.assert_array_equal(b, a, err_msg=name)
+
+
+def test_fast_train_mode_takes_the_parallel_engine(fast_models):
+    """Training goes through the same switch: the train forward groups with
+    the parallel-rounds engine, and its loss is finite."""
+    tm = copy.deepcopy(fast_models[2])  # training moves the running statistics
+    gr.parallel_rounds = 0
+    out = tm(make_synthetic_scene(seed=0, **SCENE).to("cpu"), mode="train",
+             generator=torch.Generator().manual_seed(0))
+    assert gr.parallel_rounds > 0
+    assert torch.isfinite(out.loss_sum) and float(out.loss_count) > 0

@@ -244,7 +244,9 @@ def test_training_chain_through_the_clis(tmp_path):
     -> the evaluation driver restoring the checkpoint, each a subprocess on
     the CPU at small caps; a run of 6 steps without the break ends with
     the same weights, statistics and optimizer state, bit for bit (the
-    batches are seeded by step, the jitter stream is replayed)."""
+    checkpoint restores the batch generator at its step although the
+    prefetcher had drawn 3 batches further; the jitter stream is
+    replayed)."""
     train = "seggroup_tpu_torch.cli.stage2_train_pointgroup"
     first = _run(train, [*TRAIN, "--steps", "4", "--save_freq", "2"], tmp_path)
     assert "scenes: 1 train / 1 val" in first and "step 4/4" in first
@@ -269,6 +271,86 @@ def test_training_chain_through_the_clis(tmp_path):
 
     test = _run("seggroup_tpu_torch.cli.stage2_test_pointgroup", SMALL, tmp_path)
     assert "loaded checkpoint step 6" in test and "AP " in test
+
+
+def _consumed_batches(monkeypatch, tmp_path, args):
+    """The wire batches one in-process run of the training driver takes for
+    its training steps, in order (the model's steps stubbed out; the
+    validation's batches are left out)."""
+    seen = []
+
+    def record(batch, voxel_cap, dev):
+        seen.append(batch)
+        return TW.unpack_pg_batch(batch, voxel_cap, dev)
+
+    def no_step(model, optimizer, scheduler, batch, clustering, jitter):
+        scheduler.step()
+        return torch.zeros(()), {}, torch.zeros((), dtype=torch.int32)
+
+    tmp_path.mkdir(exist_ok=True)
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(driver, "unpack_pg_batch", record)
+    monkeypatch.setattr(driver, "train_step", no_step)
+    monkeypatch.setattr(driver.PointGroup, "forward", lambda *a, **k: None)
+    monkeypatch.setattr(driver, "pointgroup_loss", lambda *a, **k: (torch.zeros(()), {}))
+    it, _ = driver.main([*TRAIN, "--prefetch_depth", "3", *args])
+    return seen[:-1], it  # the last batch is the validation's
+
+
+def test_fresh_run_draws_the_jax_drivers_batch_stream(tmp_path, monkeypatch):
+    """A fresh run's first batches equal those the JAX driver's
+    `sample_batch` draws: one generator seeded by --seed (1), consumed in
+    step order for the scene indices and make_pg_batch's augmentation."""
+    got, _ = _consumed_batches(monkeypatch, tmp_path, ["--steps", "3", "--save_freq", "3"])
+    assert len(got) == 3
+    rng = np.random.default_rng(1)
+    pool = [0]  # 2 scenes: 1 train, 1 validation
+    for batch in got:
+        idx = [pool[int(j)] for j in rng.integers(0, len(pool), size=2)]
+        tuples = [JC.scene_instance_tuple(j_scene(seed=i), {}, None, "") for i in idx]
+        hb = JC.make_pg_batch(tuples, 4096, 256, rng=rng, augment=True)
+        want = JW.pack_pg_batch(hb, *JC.host_voxelize_plan(hb, 0.02, 4096, level_caps=None)[:3])
+        assert set(batch) == set(want)
+        for k in want:
+            if np.asarray(want[k]).dtype == np.float32:
+                # coordinates and centroids: the elastic field's samples are
+                # vectorised numpy here and C++ on the JAX side, about 1e-6 m
+                # apart (seggroup_tpu_torch/data/transforms.py)
+                np.testing.assert_allclose(batch[k], want[k], rtol=0, atol=1e-5, err_msg=k)
+            else:
+                np.testing.assert_array_equal(batch[k], want[k], err_msg=k)
+    assert not np.array_equal(got[0]["coords"], got[1]["coords"])  # augmentation moves on
+
+
+def test_resume_draws_the_unbroken_batch_stream(tmp_path, monkeypatch):
+    """A checkpoint taken while the prefetcher runs 3 batches ahead holds
+    the generator's state at its own step: resuming from step 4 draws the
+    batches 5 and 6 of an unbroken run."""
+    first, _ = _consumed_batches(monkeypatch, tmp_path / "a",
+                                 ["--steps", "4", "--save_freq", "4"])
+    rest, it = _consumed_batches(monkeypatch, tmp_path / "a",
+                                 ["--steps", "6", "--save_freq", "2", "--resume"])
+    whole, _ = _consumed_batches(monkeypatch, tmp_path / "b",
+                                 ["--steps", "6", "--save_freq", "6"])
+    assert it == 6 and len(first) == 4 and len(whole) == 6
+    # the resumed run validates at step 6 only: its one validation batch is cut
+    for a, b in zip(first + rest, whole):
+        for k in b:
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    assert len(first + rest) == 6
+
+
+def test_resume_refuses_a_checkpoint_without_the_batch_generator(tmp_path, monkeypatch):
+    """A checkpoint written before the trainer kept its batch generator's
+    state cannot continue the batch stream: resuming it raises and names
+    why instead of starting a fresh generator."""
+    _consumed_batches(monkeypatch, tmp_path, ["--steps", "2", "--save_freq", "2"])
+    ckpt = CheckpointManager(tmp_path / "checkpoints" / "exp" / "pointgroup")
+    state = ckpt.restore()
+    del state["batch_rng"]
+    ckpt.save(3, state)
+    with pytest.raises(ValueError, match="batch generator"):
+        driver.main([*TRAIN, "--steps", "4", "--resume"])
 
 
 def test_step_schedule_and_refusals(tmp_path, monkeypatch):

@@ -1,5 +1,6 @@
-"""The port stands alone: it imports neither JAX nor the JAX package, and its
-entry points run on the card unless the caller asks for the CPU."""
+"""The port stands alone: it imports neither JAX nor the JAX package (nor
+its drivers in cli/, nor scipy), and its entry points run on the card
+unless the caller asks for the CPU."""
 
 import ast
 import os
@@ -12,7 +13,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "seggroup_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "flax", "seggroup_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "seggroup_tpu", "cli", "scipy")
 
 
 def test_import_leaves_jax_out():
@@ -35,7 +36,8 @@ def test_import_leaves_jax_out():
         "import seggroup_tpu_torch.cli.stage1_train, seggroup_tpu_torch.cli.stage1_infer\n"
         "import seggroup_tpu_torch.cli.stage1_evaluate, seggroup_tpu_torch.data.scannet\n"
         "import seggroup_tpu_torch.cli.stage2_train_pointgroup, seggroup_tpu_torch.data.pg_wire\n"
-        "import seggroup_tpu_torch.ops.iou\n"
+        "import seggroup_tpu_torch.ops.iou, seggroup_tpu_torch.models.kpconv\n"
+        "import seggroup_tpu_torch.data.potentials\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert not bad, bad\n"
     )

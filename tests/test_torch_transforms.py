@@ -113,3 +113,17 @@ def test_augmented_voxel_batch_matches_jax(seed):
     np.testing.assert_array_equal(a.labels[ia], b.labels[ib])
     np.testing.assert_array_equal(a.feats[ia], b.feats[ib])
 
+
+
+@pytest.mark.parametrize("axis", [0, 1, 2])
+def test_box_blur_equals_scipy_correlate1d(axis):
+    """The elastic field's box blur, numpy here, equals the JAX side's
+    scipy.ndimage.correlate1d with the float32 [1/3] * 3 kernel bit for bit."""
+    import scipy.ndimage
+
+    x = np.random.default_rng(axis).standard_normal((11, 7, 5, 3)).astype(np.float32)
+    want = scipy.ndimage.correlate1d(x, np.full(3, 1 / 3, np.float32), axis=axis,
+                                     mode="constant")
+    got = T._box3(x, axis)
+    assert got.dtype == want.dtype == np.float32
+    np.testing.assert_array_equal(got, want)
