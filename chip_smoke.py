@@ -98,13 +98,28 @@ Phases, in order; any failure exits non-zero:
      must fall;
  15a. KPConv semantic inference at the evaluation driver's defaults
      (KPFCNN with SCANNET_ARCHITECTURE, first_features_dim 64, dl0 0.04,
-     point_cap 2^15, in_radius 2.0, 3 votes) over 2 bench scenes through
+     point_cap 2^15, in_radius 2.0, 3 votes) over 1 bench scene through
      cli.stage2_test_semantic.test_semantic_kpconv, at seeded weights with
      nonzero deformable offset kernels: 100% coverage and finite logits,
      spheres per scene, the fenced split (pyramid, encoder, decoder, host
      vote), per-level neighbour-overflow rates, peak memory; then one
      sphere's pyramid (integer arrays and points equal) and logits (within
      1e-4 of their magnitude) on the card and on the CPU;
+ 15b. KPConv training (no kernel): cli.stage2_train_kpconv.main at its
+     defaults (KPFCNN, first_features_dim 64, point cap 2^15, 4 spheres a
+     step, neighbour caps calibrated from 4 probe batches, SGD momentum
+     0.98) on 2 bench scenes (1 held out), --steps 10 --save_freq 10: the
+     calibrated caps, probe overflow rates, s/step and the validation
+     lines; one fenced step of the driver's (host batch, pyramid, forward,
+     loss, backward, gradient transform, SGD) with points/s and peak
+     memory; bench.py's KPConv step (2^17 points, 10 spheres, caps n >>
+     i), 2 warm-ups and 4 timed steps, peak memory; one float32 train step
+     of two-level deformable v1 and modulated v2 nets card vs CPU (loss
+     within 1e-5 relative, each gradient within 1e-4 of its max, running
+     statistics within 1e-5); 30 SGD steps of the driver's model on one
+     batch, whose loss must fall to half; then the KPCNN classification
+     driver at its defaults and introspect_kpconv --mode erf on the
+     trainer's checkpoint; K1-K4 launch counts around each driver;
  16. each phase's wall seconds, a `kernels` JSON line, the card line, then
      the device line as the last.
 
@@ -206,8 +221,9 @@ PG_SMALL = dict(classes=8, m=8, max_proposals_per_source=32, score_cap=2048,
 FAST = dict(sequential=False, fast_knn=True)
 FAST_CHECK_POINTS = 2 ** 15
 # KPConv semantic inference at the evaluation driver's defaults
-# (cli/stage2_test_semantic.py --model kpconv)
-KP_POINT_CAP, KP_FDIM, KP_DL0, KP_RADIUS, KP_VOTES, KP_SCENES = 2 ** 15, 64, 0.04, 2.0, 3, 2
+# (cli/stage2_test_semantic.py --model kpconv), on one bench scene so that the
+# script with the KPConv training phases keeps near its time
+KP_POINT_CAP, KP_FDIM, KP_DL0, KP_RADIUS, KP_VOTES, KP_SCENES = 2 ** 15, 64, 0.04, 2.0, 3, 1
 # the deformable offset kernels' scale: at 0 (their init) a deformable layer
 # is the rigid one
 KP_OFFSET_STD = 0.05
@@ -2279,8 +2295,8 @@ def _kpconv_model(torch, dev, seed=0):
 
 
 def run_kpconv_path(torch, dev, card):
-    """KPConv semantic inference at the evaluation driver's defaults over 2
-    bench scenes with 3 votes, through cli.stage2_test_semantic's
+    """KPConv semantic inference at the evaluation driver's defaults over
+    KP_SCENES bench scenes with 3 votes, through cli.stage2_test_semantic's
     test_semantic_kpconv, at seeded weights with nonzero offset kernels;
     then the pyramid and the logits of one sphere on the card and on the
     CPU."""
@@ -2367,6 +2383,361 @@ def run_kpconv_path(torch, dev, card):
     return {"spheres": spheres, "seconds_per_scene": wall / KP_SCENES}
 
 
+# ---------------------------------------------------------------------------
+# KPConv training, KPCNN classification and introspection
+# ---------------------------------------------------------------------------
+
+# the training driver at its defaults on 2 bench scenes (val_frac holds out 1)
+KPT_STEPS, KPT_SCENES, KPT_POINT_CAP = 10, 2, 2 ** 15
+# bench.py's KPConv train step (stage2_kpconv_s_per_iter): 2^17 points in 10
+# spheres of 2 m surfaces, level caps n >> i, neighbour cap 32, regulariser
+# weight 1e-3; 2 warm-ups and 4 timed steps
+KPB_POINTS, KPB_SPHERES, KPB_REG, KPB_WARMUP, KPB_STEPS = 2 ** 17, 10, 1e-3, 2, 4
+# card vs CPU: two levels of deformable v1 (or modulated v2) blocks on 4 batch
+# elements of 1,024 points at dl0 0.05 (a net whose float32 gradients are not
+# chaotic; tests/test_torch_kpconv_train.py): loss within 1e-5 relative, each
+# gradient within 1e-4 of its max, running statistics within 1e-5
+KPC_POINTS, KPC_BATCHES, KPC_DL0, KPC_FDIM = 4096, 4, 0.05, 16
+KPC_SHALLOW = {"v1": ("simple", "resnetb_deformable", "resnetb_deformable_strided",
+                      "resnetb_deformable", "nearest_upsample", "unary"),
+               "v2": ("simple", "resnetb_deformable_v2", "resnetb_deformable_v2_strided",
+                      "resnetb_deformable_v2", "nearest_upsample", "unary")}
+# the weights' seeds: at some seeds (3 and 5 for v2) float32 itself is
+# chaotic here, the CPU's gradients moving by 6e-4 to 2e-2 of their max when
+# the features move by 1e-7; the phase measures that move (the CPU's own
+# spread) and requires it under KPC_SPREAD
+KPC_SEEDS, KPC_SPREAD = {"v1": 3, "v2": 7}, 1e-5
+KPC_LOSS_RTOL, KPC_GRAD_RTOL, KPC_STATS_ATOL = 1e-5, 1e-4, 1e-5
+# overfit: the driver's model on one batch of 2^13 points, 30 SGD steps; the
+# mean of the last 5 losses must be at most this share of the first 5's
+KPO_POINTS, KPO_FALL = 2 ** 13, 0.5
+
+
+def _kernel_counts():
+    from seggroup_tpu_torch.ops import cuda_cc, cuda_fps
+    from seggroup_tpu_torch.sparse import cuda_subm_conv, cuda_subm_dw
+
+    return {"masked_fps": cuda_fps, "subm_conv": cuda_subm_conv, "subm_dw": cuda_subm_dw,
+            "cc_sweep": cuda_cc}
+
+
+def _count_launches(torch, fn, *args):
+    """fn(*args) with every kernel's count set to 0 just before; returns
+    (its result, {kernel: launches})."""
+    mods = _kernel_counts()
+    for mod in mods.values():
+        mod.launches = 0
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, {name: mod.launches for name, mod in mods.items()}
+
+
+def _bench_scene_source():
+    """SceneSource's synthetic scenes at bench size, for the drivers'
+    `--synthetic N`: restores the 4,096-point ones on exit."""
+    from contextlib import contextmanager
+    from functools import partial
+
+    from seggroup_tpu_torch.cli import stage1_common
+    from seggroup_tpu_torch.data.synthetic import BENCH_SCENE, make_synthetic_scene
+
+    @contextmanager
+    def patched():
+        stage1_common.make_synthetic_scene = partial(make_synthetic_scene, **BENCH_SCENE)
+        try:
+            yield
+        finally:
+            stage1_common.make_synthetic_scene = make_synthetic_scene
+    return patched()
+
+
+def _room_sphere_points(rng, n, radius):
+    """bench.py's `room_sphere_points`: a floor disc (45%), two wall strips
+    (30%) and furniture blobs (25%) inside an in_radius sphere."""
+    nf = int(n * 0.45)
+    nw = int(n * 0.30)
+    nb = n - nf - nw
+    floor = np.stack([rng.uniform(-radius, radius, nf), rng.uniform(-radius, radius, nf),
+                      rng.normal(0, 0.01, nf) - radius * 0.6], 1)
+    walls = []
+    for k in range(2):
+        m = nw // 2 if k == 0 else nw - nw // 2
+        w = np.stack([rng.normal(0, 0.01, m) + (radius * 0.7 if k else -radius * 0.5),
+                      rng.uniform(-radius, radius, m), rng.uniform(-radius * 0.6, radius, m)], 1)
+        walls.append(w if k else w[:, [1, 0, 2]])
+    centers = rng.uniform(-radius * 0.6, radius * 0.6, (6, 3))
+    which = rng.integers(0, 6, nb)
+    blobs = centers[which] + rng.normal(0, 0.12, (nb, 3))
+    p = np.concatenate([floor] + walls + [blobs]).astype(np.float32)
+    r = np.linalg.norm(p, axis=1)
+    p[r > radius] *= (radius / r[r > radius])[:, None] * 0.999
+    return p
+
+
+def _bench_kpconv_batch():
+    """bench.py's stage2_kpconv_s_per_iter inputs: (points, batch ids,
+    valid, feats, labels)."""
+    rng = np.random.default_rng(0)
+    n = KPB_POINTS
+    per = n // KPB_SPHERES
+    pts = np.zeros((n, 3), np.float32)
+    bids = np.zeros(n, np.int32)
+    for b in range(KPB_SPHERES):
+        center = rng.uniform(0, 8, 3).astype(np.float32)
+        sl = slice(b * per, (b + 1) * per)
+        pts[sl] = center + _room_sphere_points(rng, per, 2.0)
+        bids[sl] = b
+    valid = np.ones(n, bool)
+    feats = np.concatenate([np.ones((n, 1), np.float32), rng.random((n, 3)).astype(np.float32)],
+                           1)
+    labels = rng.integers(0, 20, n).astype(np.int32)
+    return pts, bids, valid, feats, labels
+
+
+def _peak_gib(torch, dev):
+    return torch.cuda.max_memory_allocated(dev) / 2 ** 30
+
+
+def run_kpconv_train_path(torch, dev, card, work):
+    """KPConv training: (a) cli.stage2_train_kpconv.main at its defaults on 2
+    bench scenes, --steps 10 --save_freq 10, in `work` (its checkpoint is
+    what the introspection phase restores); (b) one fenced step of the
+    driver's: host batch, pyramid, forward, loss, backward, gradient
+    transform, SGD; (c) bench.py's KPConv step, 2 warm-ups and 4 timed.
+    Returns the kernels' launches in (a) and the figures."""
+    import ast
+    import re
+
+    from seggroup_tpu_torch.cli import stage2_train_kpconv as TR
+    from seggroup_tpu_torch.cli.stage2_common import scene_to_training_tuple
+    from seggroup_tpu_torch.cli.stage2_test_semantic import kpconv_level_caps
+    from seggroup_tpu_torch.data.potentials import PotentialSampler
+    from seggroup_tpu_torch.data.synthetic import BENCH_SCENE, make_synthetic_scene
+    from seggroup_tpu_torch.device import PhaseClock
+    from seggroup_tpu_torch.models.kpconv import KPFCNN
+
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        t0 = time.perf_counter()
+        with _bench_scene_source():
+            _, launches = _count_launches(torch, TR.main, ["--synthetic", str(KPT_SCENES),
+                                                          "--steps", str(KPT_STEPS),
+                                                          "--save_freq", str(KPT_STEPS)])
+        wall = time.perf_counter() - t0
+        log = open(os.path.join("checkpoints", "exp", "kpconv.log")).read()
+    finally:
+        os.chdir(cwd)
+    caps_line = next(ln for ln in log.splitlines() if ln.startswith("calibrated neighbor caps"))
+    step_line = next(ln for ln in log.splitlines() if ln.startswith(f"step {KPT_STEPS}/"))
+    val_lines = [ln for ln in log.splitlines() if "val acc" in ln or "overflow %" in ln]
+    s_it = float(re.search(r"\(([\d.]+)s/it\)", step_line).group(1))
+    loss = float(re.search(r"loss ([\d.]+)", step_line).group(1))
+    if not (np.isfinite(loss) and len(val_lines) == 2 and "kpconv" in os.listdir(
+            os.path.join(work, "checkpoints", "exp"))):
+        raise AssertionError(f"the KPConv trainer's log: {log}")
+    print(f"stage2_train_kpconv.main at its defaults on {KPT_SCENES} bench scenes of "
+          f"{BENCH_SCENE['num_points']} points (1 held out), --steps {KPT_STEPS}: {wall:.2f} s "
+          f"with the build and calibration; {caps_line}; {step_line}; "
+          + "; ".join(ln.strip() for ln in val_lines)
+          + f"; kernel launches {launches}; on {card}", flush=True)
+    nbr_caps = ast.literal_eval(caps_line.split(": ", 1)[1].split(" (")[0])
+
+    # (b) the driver's step, fenced
+    name = "bench0"
+    scenes = [scene_to_training_tuple(make_synthetic_scene(seed=0, **BENCH_SCENE), {}, None,
+                                      name, False)]
+    n_cap = KPT_POINT_CAP
+    caps = kpconv_level_caps(n_cap)
+    sampler = PotentialSampler([c for c, _, _ in scenes], in_radius=2.0, seed=1)
+    rng = np.random.default_rng(1)
+    model = KPFCNN(first_features_dim=64, dl0=0.04, seed=1, device=dev)
+    optimizer, scheduler = TR.make_sgd(model, 1e-2)
+    split: dict[str, float] = {}
+    points = 0
+    for step in range(2):  # a warm-up, then the fenced step
+        phases = split if step else {}
+        phase = PhaseClock(dev, phases)
+        with phase("host batch"):
+            pts, feats, labs, bids, valid = TR.sample_batch(scenes, sampler, rng, 4, 2.0, n_cap)
+        with phase("pyramid"):
+            pyr = TR.to_device_pyramid(pts, bids, valid, dev, 0.04, caps, nbr_caps)
+        if step:
+            torch.cuda.reset_peak_memory_stats(dev)
+        TR.train_step(model, optimizer, scheduler, pyr, torch.from_numpy(feats).to(dev),
+                      torch.from_numpy(labs).to(dev), phase_seconds=phases)
+        points = int(valid.sum())
+    peak = _peak_gib(torch, dev)
+    total = sum(split.values())
+    print(f"KPConv driver step, fenced ({points} points in 4 spheres, point cap {n_cap}, "
+          f"neighbour caps {nbr_caps}): " + ", ".join(f"{k} {v:.4f} s" for k, v in split.items())
+          + f"; total {total:.4f} s = {points / total:.1f} points/s; peak {peak:.2f} GiB; "
+          f"on {card}", flush=True)
+
+    # (c) bench.py's configuration
+    pts, bids, valid, feats, labels = _bench_kpconv_batch()
+    bcaps = [KPB_POINTS >> i for i in range(1, 5)]
+    model = KPFCNN(first_features_dim=64, dl0=0.04, seed=0, device=dev)
+    optimizer, scheduler = TR.make_sgd(model, 1e-2)
+    f_d, l_d = torch.from_numpy(feats).to(dev), torch.from_numpy(labels).to(dev)
+
+    def bench_step(phases=None):
+        with PhaseClock(dev, phases)("pyramid"):
+            pyr = TR.to_device_pyramid(pts, bids, valid, dev, 0.04, bcaps, [32] * 5)
+        return TR.train_step(model, optimizer, scheduler, pyr, f_d, l_d,
+                             offset_loss_weight=KPB_REG, phase_seconds=phases)[0]
+
+    for _ in range(KPB_WARMUP):
+        bench_step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    losses = [bench_step() for _ in range(KPB_STEPS)]
+    torch.cuda.synchronize()
+    per_step = (time.perf_counter() - t0) / KPB_STEPS
+    peak_b = _peak_gib(torch, dev)
+    bsplit: dict[str, float] = {}
+    bench_step(bsplit)
+    if not all(np.isfinite(float(x)) for x in losses):
+        raise AssertionError(f"bench.py KPConv step losses {losses}")
+    print(f"KPConv train step at bench.py's configuration ({KPB_POINTS} points, "
+          f"{KPB_SPHERES} spheres, caps n >> i, neighbour cap 32): {per_step:.4f} s/step "
+          f"= {KPB_POINTS / per_step:.1f} points/s over {KPB_STEPS} steps after {KPB_WARMUP} "
+          f"warm-ups; peak {peak_b:.2f} GiB; one fenced: "
+          + ", ".join(f"{k} {v:.4f} s" for k, v in bsplit.items()) + f"; on {card}", flush=True)
+    return {"launches": launches, "driver_s_per_step": s_it, "split": split,
+            "bench_s_per_step": per_step}
+
+
+def _kpc_inputs():
+    rng = np.random.default_rng(15)
+    n = KPC_POINTS
+    pts = rng.random((n, 3)).astype(np.float32)
+    bids = (np.arange(n) * KPC_BATCHES // n).astype(np.int32)
+    valid = np.ones(n, bool)
+    valid[-n // 10:] = False
+    pts[~valid] = 0.0
+    feats = np.ones((n, 4), np.float32)
+    feats[:, 1:] = rng.random((n, 3))
+    labels = rng.integers(0, 20, n).astype(np.int32)
+    labels[rng.random(n) < 0.1] = 255
+    labels[~valid] = 255
+    return pts, bids, valid, feats, labels
+
+
+def kpconv_train_card_vs_cpu(torch, dev, card):
+    """One float32 train step (cli.stage2_train_kpconv.train_step) of a
+    two-level KPFCNN with deformable v1, then modulated v2, blocks at
+    nonzero offset weights (KP_OFFSET_STD) on the card and on the CPU from
+    the same weights; then 30 steps of the driver's model on one batch on
+    the card, whose loss must fall."""
+    from seggroup_tpu_torch.cli import stage2_train_kpconv as TR
+    from seggroup_tpu_torch.models.kpconv import KPFCNN, build_pyramid
+
+    pts, bids, valid, feats, labels = _kpc_inputs()
+    caps = [KPC_POINTS >> i for i in range(1, 5)]
+    moved = feats * (1 + 1e-7 * np.random.default_rng(3).standard_normal(feats.shape)
+                     ).astype(np.float32)
+    lines = []
+    for arch, architecture in KPC_SHALLOW.items():
+        ref = KPFCNN(architecture=architecture, first_features_dim=KPC_FDIM, dl0=KPC_DL0,
+                     modulated=arch == "v2", seed=KPC_SEEDS[arch], device="cpu")
+        g = torch.Generator().manual_seed(KPC_SEEDS[arch] + 1)
+        with torch.no_grad():
+            for name, p in ref.named_parameters():
+                if "offset" in name:
+                    p.copy_(torch.randn(p.shape, generator=g) * KP_OFFSET_STD)
+        state = {k: v.clone() for k, v in ref.state_dict().items()}
+        runs = []
+        for d, f in ((dev, feats), (torch.device("cpu"), feats), (torch.device("cpu"), moved)):
+            model = KPFCNN(architecture=architecture, first_features_dim=KPC_FDIM, dl0=KPC_DL0,
+                           modulated=arch == "v2", device=d)
+            model.load_state_dict(state)
+            optimizer, scheduler = TR.make_sgd(model, 1e-2)
+            pyr = build_pyramid(*(torch.from_numpy(x).to(d) for x in (pts, bids, valid)), 5,
+                                KPC_DL0, level_caps=caps)
+            loss, _ = TR.train_step(model, optimizer, scheduler, pyr,
+                                    torch.from_numpy(f).to(d), torch.from_numpy(labels).to(d))
+            runs.append((float(loss), {n: p.grad.cpu() for n, p in model.named_parameters()},
+                         {n: b.cpu() for n, b in model.named_buffers()}))
+        (la, ga, ba), (lb, gb, bb), (_, gm, _) = runs
+
+        def spread(x, y):
+            return max(float((x[n] - y[n]).abs().max() / y[n].abs().max()) for n in y)
+        grad_err, own = spread(ga, gb), spread(gm, gb)
+        stats_err = max(float((ba[n] - bb[n]).abs().max()) for n in bb)
+        line = (f"{arch} (seed {KPC_SEEDS[arch]}): loss {la:.6f} vs {lb:.6f}, gradients within "
+                f"{grad_err:.3g} of their max (the CPU's own move at features moved by 1e-7: "
+                f"{own:.3g}), running statistics within {stats_err:.3g}")
+        if not (abs(la - lb) <= KPC_LOSS_RTOL * abs(lb) and grad_err <= KPC_GRAD_RTOL
+                and stats_err <= KPC_STATS_ATOL and own <= KPC_SPREAD):
+            raise AssertionError(f"KPConv train step card vs CPU, {line}")
+        lines.append(line)
+    print(f"KPConv train step card vs CPU ({KPC_POINTS} points in {KPC_BATCHES} batch elements, "
+          f"two levels, offsets at {KP_OFFSET_STD}): " + "; ".join(lines), flush=True)
+
+    # overfit one batch of the driver's sampling at the driver's model
+    from seggroup_tpu_torch.cli.stage2_common import scene_to_training_tuple
+    from seggroup_tpu_torch.cli.stage2_test_semantic import kpconv_level_caps
+    from seggroup_tpu_torch.data.potentials import PotentialSampler
+    from seggroup_tpu_torch.data.synthetic import BENCH_SCENE, make_synthetic_scene
+
+    scenes = [scene_to_training_tuple(make_synthetic_scene(seed=1, **BENCH_SCENE), {}, None,
+                                      "bench1", False)]
+    sampler = PotentialSampler([c for c, _, _ in scenes], in_radius=2.0, seed=5)
+    b_pts, b_feats, b_labs, b_bids, b_valid = TR.sample_batch(
+        scenes, sampler, np.random.default_rng(5), 4, 2.0, KPO_POINTS)
+    model = KPFCNN(first_features_dim=64, dl0=0.04, seed=6, device=dev)
+    optimizer, scheduler = TR.make_sgd(model, 1e-2)
+    pyr = TR.to_device_pyramid(b_pts, b_bids, b_valid, dev, 0.04, kpconv_level_caps(KPO_POINTS),
+                               [32] * 5)
+    f_d, l_d = torch.from_numpy(b_feats).to(dev), torch.from_numpy(b_labs).to(dev)
+    losses = [float(TR.train_step(model, optimizer, scheduler, pyr, f_d, l_d)[0])
+              for _ in range(OVERFIT_STEPS)]
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    line = (f"KPConv overfit, the driver's KPFCNN on one batch of {int(b_valid.sum())} points, "
+            f"{OVERFIT_STEPS} SGD steps: mean loss of the first 5 {first:.4f}, of the last 5 "
+            f"{last:.4f} (at most {KPO_FALL} of it required); on {card}")
+    if not (np.isfinite(losses).all() and last <= KPO_FALL * first):
+        raise AssertionError(f"{line}; losses {losses}")
+    print(line, flush=True)
+
+
+def run_kpcnn_and_introspection(torch, dev, card, work):
+    """cli.stage2_test_classification.main at its defaults (random weights:
+    no KPCNN trainer exists), then cli.introspect_kpconv.main --mode erf at
+    its defaults on the KPConv trainer's checkpoint in `work`. Returns the
+    kernels' launches of each."""
+    from seggroup_tpu_torch.cli import introspect_kpconv, stage2_test_classification
+
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        t0 = time.perf_counter()
+        acc, cls_launches = _count_launches(torch, stage2_test_classification.main, [])
+        cls_wall = time.perf_counter() - t0
+        cls_log = open(os.path.join("checkpoints", "exp", "kpcnn_test.log")).read()
+        t0 = time.perf_counter()
+        _, erf_launches = _count_launches(torch, introspect_kpconv.main,
+                                          ["--mode", "erf", "--synthetic", "1"])
+        erf_wall = time.perf_counter() - t0
+        erf_log = open(os.path.join("checkpoints", "exp", "introspect.log")).read()
+        ply = [f for f in os.listdir("introspect") if f.endswith("_erf.ply")]
+    finally:
+        os.chdir(cwd)
+    if "FINAL accuracy" not in cls_log or not 0 <= acc <= 100:
+        raise AssertionError(f"the classification driver's log: {cls_log}")
+    if "loaded checkpoint" not in erf_log or len(ply) != 1:
+        raise AssertionError(f"the introspection driver's log: {erf_log}")
+    print(f"stage2_test_classification.main at its defaults (16 shapes, 3 votes, 8 clouds of "
+          f"512 points a batch, first_features_dim 32, random weights): {cls_wall:.2f} s, "
+          f"accuracy {acc:.2f}%, kernel launches {cls_launches}; introspect_kpconv.main --mode "
+          f"erf on the trainer's checkpoint: {erf_wall:.2f} s, "
+          f"{erf_log.strip().splitlines()[-1]}, kernel launches {erf_launches}; on {card}",
+          flush=True)
+    return cls_launches, erf_launches
+
+
 def build_all() -> None:
     """Build every kernel, one nvcc per source, all started together."""
     from seggroup_tpu_torch.ops import cuda_cc, cuda_fps
@@ -2450,13 +2821,22 @@ def main() -> int:
     phase("PointGroup checked step", pointgroup_train_checked_step, torch, dev)
     phase("PointGroup training card vs CPU", pointgroup_train_card_vs_cpu, torch, dev, card)
     phase("KPConv inference", run_kpconv_path, torch, dev, card)
+    with tempfile.TemporaryDirectory() as kp_work:
+        kp_train = phase("KPConv training", run_kpconv_train_path, torch, dev, card, kp_work)
+        phase("KPConv training card vs CPU", kpconv_train_card_vs_cpu, torch, dev, card)
+        kpcnn_launches, erf_launches = phase("KPCNN and introspection",
+                                             run_kpcnn_and_introspection, torch, dev, card,
+                                             kp_work)
     print("wall seconds by phase: " + "; ".join(f"{k} {v:.2f}" for k, v in seconds.items())
           + f"; total {sum(seconds.values()):.2f}", flush=True)
 
-    # this slice's paths are stage-1 inference in the fast configuration
-    # (K1), the repaired evaluation driver (K2) and KPConv inference (no
-    # kernel); K3 and K4 run on none of them and keep PointGroup training's
-    # counts. Each kernel's counts on the other paths stand beside them.
+    # this slice's paths (KPConv training, KPCNN classification, the
+    # introspection) run no kernel: each kernel keeps the count of the last
+    # path that runs it (K1 stage-1 inference in the fast configuration, K2
+    # the evaluation driver, K3 and K4 PointGroup training), and each
+    # kernel's counts on every path, these included, stand beside it.
+    kp_paths = {"kpconv_training": kp_train["launches"],
+                "kpcnn_classification": kpcnn_launches, "introspect_kpconv": erf_launches}
     k1["launches"] = fast_fps
     k1["launches_by_path"] = {"stage1_inference": launches["masked_fps"],
                               "stage1_inference_fast": fast_fps,
@@ -2481,6 +2861,8 @@ def main() -> int:
     k4["launches_by_path"] = {"pointgroup_inference": pointgroup["cc_sweep"],
                               "pointgroup_training_prepare": prepare["cc_sweep"],
                               "pointgroup_training_clustering": clustering["cc_sweep"]}
+    for k, name in ((k1, "masked_fps"), (k2, "subm_conv"), (k3, "subm_dw"), (k4, "cc_sweep")):
+        k["launches_by_path"].update({path: c[name] for path, c in kp_paths.items()})
     print(json.dumps({"kernels": [k1, k2, k3, k4]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -90,6 +90,19 @@ class PotentialSampler:
     def __len__(self):
         return len(self.sub_points)
 
+    def state(self) -> dict:
+        """A copy of what the draws change: the potentials and the
+        generator's state."""
+        return {"rng": self.rng.bit_generator.state,
+                "potentials": [p.copy() for p in self.potentials]}
+
+    def set_state(self, state: dict) -> None:
+        """Continue from `state()`'s copy (arrays or tensors of the same
+        lengths)."""
+        self.rng.bit_generator.state = state["rng"]
+        self.potentials = [np.array(p, np.float32) for p in state["potentials"]]
+        self._mins = np.array([p.min() for p in self.potentials], np.float32)
+
     def min_potential(self) -> float:
         """The global minimum potential; >= 1.0 once every potential point
         has been inside a drawn sphere."""

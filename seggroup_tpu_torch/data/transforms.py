@@ -29,16 +29,18 @@ JITTER_STD = 0.05
 DROPOUT_RATIO = 0.2
 
 
-def random_rotation_z(coords: np.ndarray, rng: np.random.Generator) -> np.ndarray:
+def random_rotation_z(coords: np.ndarray, rng: np.random.Generator,
+                      max_angle: float = ROTATION_BOUND) -> np.ndarray:
     """Upright rotation (reference voxelizer ROTATION_AUGMENTATION_BOUND z-axis)."""
-    t = rng.uniform(-ROTATION_BOUND / 2, ROTATION_BOUND / 2)
+    t = rng.uniform(-max_angle / 2, max_angle / 2)
     c, s = np.cos(t), np.sin(t)
     rot = np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]], np.float32)
     return coords @ rot.T
 
 
-def random_scale(coords: np.ndarray, rng: np.random.Generator) -> np.ndarray:
-    return coords * rng.uniform(*SCALE_RANGE)
+def random_scale(coords: np.ndarray, rng: np.random.Generator,
+                 lo: float = SCALE_RANGE[0], hi: float = SCALE_RANGE[1]) -> np.ndarray:
+    return coords * rng.uniform(lo, hi)
 
 
 def random_flip(coords: np.ndarray, rng: np.random.Generator) -> np.ndarray:

@@ -1,6 +1,7 @@
 """Weights of the JAX models -> state_dicts of the port's: SegGroupGNN
 (`params_from_flax`), MinkUNet (`minkunet_params_from_flax`), PointGroup
-(`pointgroup_params_from_flax`) and KPFCNN (`kpconv_params_from_flax`).
+(`pointgroup_params_from_flax`), KPFCNN (`kpconv_params_from_flax`) and
+KPCNN (`kpcnn_params_from_flax`).
 
 The JAX variables are `{"params": ..., "batch_stats": ...}` trees of numpy
 arrays (`jax.tree.map(np.asarray, variables)`). Flax `Dense` kernels are
@@ -95,8 +96,17 @@ def pointgroup_params_from_flax(variables: Mapping) -> dict[str, torch.Tensor]:
 def kpconv_params_from_flax(variables: Mapping) -> dict[str, torch.Tensor]:
     """state_dict of models.kpconv.KPFCNN from the flax KPFCNN's
     `{"params", "batch_stats"}` trees. The port keeps the flax names
-    (`b0_kp/kernel`, `b5/kp/offset_kernel`, `b11_unary/kernel`, `head_bn/scale`,
-    ...), so the rule is MinkUNet's: the (P, Cin, Cout) `kernel` and
-    `offset_kernel` as they are, Dense kernels (2-D) transposed into
-    `.weight`, TFBatchNorm `scale`/`bias` and `mean`/`var` as they are."""
+    (`b0_kp/kernel`, `b5/kp/offset_kernel`, `b5/kp/offset_mlp/kernel`,
+    `b11_unary/kernel`, `head_bn/scale`, ...), so the rule is MinkUNet's:
+    the (P, Cin, Cout) `kernel` and `offset_kernel` as they are, Dense
+    kernels (2-D, the deformable v2 `offset_mlp` among them) transposed into
+    `.weight`, biases, TFBatchNorm `scale`/`bias` and `mean`/`var` as they
+    are."""
+    return minkunet_params_from_flax(variables)
+
+
+def kpcnn_params_from_flax(variables: Mapping) -> dict[str, torch.Tensor]:
+    """state_dict of models.kpconv.KPCNN from the flax KPCNN's trees: the
+    encoder as `kpconv_params_from_flax` maps it, and the head's `fc`,
+    `fc_bn` and `softmax` by the same rule."""
     return minkunet_params_from_flax(variables)

@@ -1,8 +1,8 @@
 """Profile one forward, or one train step, of a main path at the bench size
 on the card.
 
-    python -m seggroup_tpu_torch.profile_forward [--path stage1|stage2|train|pointgroup]
-        [--seed 0] [--top 15]
+    python -m seggroup_tpu_torch.profile_forward
+        [--path stage1|stage2|train|pointgroup|kpconv_train] [--seed 0] [--top 15]
 
 stage1: SegGroupGNN ins_infer on a bench scene (150,528 points).
 stage2: Res16UNet34C on a bench scene voxelised at 2 cm into 2^17 voxels
@@ -15,6 +15,9 @@ pointgroup: one PointGroup forward with clustering at the evaluation
 CLI's defaults (m=16, 2^17 points, 2^16 voxels, radius 0.03; random
 weights from the seed) on a bench scene, its device time grouped into K2,
 K4, sorts and searches, reductions, elementwise kernels and the rest.
+kpconv_train: one KPConv train step (cli/stage2_train_kpconv.train_step,
+the pyramid built first) at the training driver's defaults: 4 spheres of a
+bench scene at point cap 2^15, neighbour caps calibrated on that batch.
 
 Prints the wall seconds with and without the profiler, the summed device
 kernel time, the device's busy share (kernel time over the wall time
@@ -99,6 +102,34 @@ def _train(seed: int, dev):
             forward_alone)
 
 
+def _kpconv_train(seed: int, dev):
+    from seggroup_tpu_torch.cli import stage2_train_kpconv as TR
+    from seggroup_tpu_torch.cli.stage2_common import scene_to_training_tuple
+    from seggroup_tpu_torch.cli.stage2_test_semantic import KPCONV_LAYERS, kpconv_level_caps
+    from seggroup_tpu_torch.data.potentials import PotentialSampler
+    from seggroup_tpu_torch.models.kpconv import KPFCNN, calibrate_neighbor_caps
+
+    n_cap = 2 ** 15
+    caps = kpconv_level_caps(n_cap)
+    scenes = [scene_to_training_tuple(make_synthetic_scene(seed=seed, **BENCH_SCENE), {}, None,
+                                      "", False)]
+    sampler = PotentialSampler([scenes[0][0]], in_radius=2.0, seed=seed)
+    pts, feats, labs, bids, valid = TR.sample_batch(scenes, sampler,
+                                                    np.random.default_rng(seed), 4, 2.0, n_cap)
+    nbr_caps, _ = calibrate_neighbor_caps([(pts, bids, valid)], KPCONV_LAYERS, 0.04,
+                                          level_caps=caps, device=dev)
+    model = KPFCNN(seed=seed, device=dev)
+    optimizer, scheduler = TR.make_sgd(model, 1e-2)
+    f, lab = torch.from_numpy(feats).to(dev), torch.from_numpy(labs).to(dev)
+
+    def step():
+        pyr = TR.to_device_pyramid(pts, bids, valid, dev, 0.04, caps, nbr_caps)
+        return TR.train_step(model, optimizer, scheduler, pyr, f, lab)
+
+    return (step, f"KPConv train step, {int(valid.sum())} points in 4 spheres, point cap "
+            f"{n_cap}, neighbour caps {nbr_caps}", None)
+
+
 def _pointgroup(seed: int, dev):
     from seggroup_tpu_torch.cli.stage2_pointgroup_common import (make_pg_batch,
                                                                  scene_instance_tuple)
@@ -147,6 +178,15 @@ GROUPS_POINTGROUP = (("K2 subm_conv", K2_KERNELS),
                                                   "indexFuncLargeIndex", "scan")),
                      ("elementwise", ("elementwise", "CatArrayBatchedCopy", "index_elementwise",
                                       "gather")))
+# ... and of the KPConv train step's
+GROUPS_KPCONV = (("GEMMs", ("gemm", "cutlass", "sm90_xmma", "cublas", "splitK")),
+                 ("index backward", ("indexing_backward",)),
+                 ("index_add and scatters", ("index_add", "indexFuncLargeIndex", "scatter",
+                                             "index_put")),
+                 ("sorts and searches", ("sort", "radix", "search", "bucketize")),
+                 ("reductions", ("reduce_kernel",)),
+                 ("elementwise", ("elementwise", "CatArrayBatchedCopy", "index_elementwise",
+                                  "gather")))
 
 
 def _kernels(prof):
@@ -171,8 +211,8 @@ def _seconds(forward) -> float:
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--path", choices=["stage1", "stage2", "train", "pointgroup"],
-                    default="stage1")
+    ap.add_argument("--path", choices=["stage1", "stage2", "train", "pointgroup",
+                                       "kpconv_train"], default="stage1")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--top", type=int, default=15)
     args = ap.parse_args(argv)
@@ -180,8 +220,10 @@ def main(argv=None) -> None:
     dev = resolve_device("cuda")
     card = card_description()
     forward, what, forward_alone = {"stage1": _stage1, "stage2": _stage2, "train": _train,
-                                    "pointgroup": _pointgroup}[args.path](args.seed, dev)
-    group_keys = GROUPS_POINTGROUP if args.path == "pointgroup" else GROUPS
+                                    "pointgroup": _pointgroup,
+                                    "kpconv_train": _kpconv_train}[args.path](args.seed, dev)
+    group_keys = {"pointgroup": GROUPS_POINTGROUP,
+                  "kpconv_train": GROUPS_KPCONV}.get(args.path, GROUPS)
     _seconds(forward)  # warm-up
     plain_s = _seconds(forward)
 

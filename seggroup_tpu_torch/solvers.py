@@ -1,6 +1,7 @@
 """Learning-rate schedules and optimizers (seggroup_tpu/solvers.py).
 
-The five schedules are the JAX package's formulas. `make_optimizer` gives
+The five schedules are the JAX package's formulas, with its keywords and
+defaults. `make_optimizer` gives
 torch.optim's SGD (momentum 0.9) or Adam with an L2 weight decay of 1e-4
 added to the gradient, which is optax's `add_decayed_weights` followed by
 `sgd` or `adam`; with `weight_decay=0`, Adam is optax's plain `adam` (the
@@ -15,24 +16,24 @@ import torch
 
 Schedule = Callable[[int], float]
 
-# the JAX package's schedule and optimizer constants
-POLY_POWER = 0.9
-STEP_SIZE, STEP_GAMMA = 20000, 0.1
-EXP_GAMMA, EXP_STEP_SIZE = 0.9, 445
+# the JAX package's optimizer constants
 SGD_MOMENTUM = 0.9
 ADAM_BETAS = (0.9, 0.999)
 WEIGHT_DECAY = 1e-4
 
 
-def make_schedule(name: str, base_lr: float, *, max_iter: int = 60000) -> Schedule:
+def make_schedule(name: str, base_lr: float, *, max_iter: int = 60000,
+                  poly_power: float = 0.9, step_size: int = 20000,
+                  step_gamma: float = 0.1, exp_gamma: float = 0.9,
+                  exp_step_size: int = 445) -> Schedule:
     if name == "PolyLR":
-        return lambda s: base_lr * (1 - s / (max_iter + 1)) ** POLY_POWER
+        return lambda s: base_lr * (1 - s / (max_iter + 1)) ** poly_power
     if name == "SquaredLR":
         return lambda s: base_lr * (1 - s / (max_iter + 1)) ** 2
     if name == "StepLR":
-        return lambda s: base_lr * STEP_GAMMA ** (s // STEP_SIZE)
+        return lambda s: base_lr * step_gamma ** (s // step_size)
     if name == "ExpLR":
-        return lambda s: base_lr * EXP_GAMMA ** (s / EXP_STEP_SIZE)
+        return lambda s: base_lr * exp_gamma ** (s / exp_step_size)
     if name == "constant":
         return lambda s: base_lr
     raise ValueError(name)

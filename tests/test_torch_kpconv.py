@@ -252,12 +252,3 @@ def test_params_from_flax(network):
     assert float(fresh.b5.kp.offset_kernel.detach().abs().max()) == 0  # zero, as flax initialises it
     assert float(fresh.logits.bias.detach().abs().max()) == 0
 
-
-def test_what_waits_for_kpconv_training_raises():
-    bn = T.TFBatchNorm(4)
-    with pytest.raises(NotImplementedError):
-        bn(torch.zeros(3, 4), torch.ones(3, dtype=torch.bool), True)
-    with pytest.raises(NotImplementedError):
-        T.KPConvLayer(4, 4, deformable_v2=True)
-    with pytest.raises(NotImplementedError):
-        T.KPFCNN(architecture=("simple", "resnetb_deformable_v2"), device="cpu")

@@ -37,7 +37,10 @@ def test_import_leaves_jax_out():
         "import seggroup_tpu_torch.cli.stage1_evaluate, seggroup_tpu_torch.data.scannet\n"
         "import seggroup_tpu_torch.cli.stage2_train_pointgroup, seggroup_tpu_torch.data.pg_wire\n"
         "import seggroup_tpu_torch.ops.iou, seggroup_tpu_torch.models.kpconv\n"
-        "import seggroup_tpu_torch.data.potentials\n"
+        "import seggroup_tpu_torch.data.potentials, seggroup_tpu_torch.data.ply\n"
+        "import seggroup_tpu_torch.cli.stage2_train_kpconv\n"
+        "import seggroup_tpu_torch.cli.stage2_test_classification\n"
+        "import seggroup_tpu_torch.cli.introspect_kpconv\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert not bad, bad\n"
     )
@@ -157,3 +160,26 @@ def test_pointgroup_training_driver_defaults_to_the_card(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         stage2_train_pointgroup.main(["--synthetic", "1", "--steps", "1"])
     assert not (tmp_path / "checkpoints").exists()
+
+
+@pytest.mark.parametrize("driver,argv", [
+    ("stage2_train_kpconv", ["--synthetic", "1", "--steps", "1"]),
+    ("stage2_test_classification", ["--synthetic", "2"]),
+    ("introspect_kpconv", ["--synthetic", "1", "--mode", "erf"])])
+def test_kpconv_drivers_default_to_the_card(driver, argv, tmp_path, monkeypatch):
+    """The KPConv training, classification and introspection drivers
+    without --device run on CUDA and raise where there is none, before
+    they write anything; KPCNN without device= too."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    import importlib
+
+    from seggroup_tpu_torch.models.kpconv import KPCNN
+
+    main = importlib.import_module(f"seggroup_tpu_torch.cli.{driver}").main
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(argv)
+    assert not any(tmp_path.iterdir())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        KPCNN(num_classes=6)

@@ -31,6 +31,19 @@ def test_schedules_equal_jax(name):
         assert float(ts(s)) == float(js(s)), (name, s)
 
 
+@pytest.mark.parametrize("name,kw", [
+    ("PolyLR", dict(max_iter=100, poly_power=0.5)),
+    ("StepLR", dict(step_size=7, step_gamma=0.5)),
+    ("ExpLR", dict(exp_gamma=0.1 ** (1 / 150000), exp_step_size=1)),  # the KPConv trainer's
+    ("ExpLR", dict(exp_gamma=0.5, exp_step_size=3))])
+def test_schedule_keywords_equal_jax(name, kw):
+    js = J.make_schedule(name, 1e-2, **kw)
+    ts = T.make_schedule(name, 1e-2, **kw)
+    for s in (0, 1, 2, 3, 7, 50, 99, 1000, 150000):
+        if s <= kw.get("max_iter", s):  # PolyLR is defined up to max_iter
+            assert float(ts(s)) == float(js(s)), (name, kw, s)
+
+
 @pytest.mark.parametrize("name", ["SGD", "Adam"])
 @pytest.mark.parametrize("schedule", ["PolyLR", "StepLR"])
 def test_optimizer_steps_equal_optax(name, schedule):

@@ -45,6 +45,19 @@ def test_geometric_transforms_equal(cloud, name, seed):
     _same_state(r1, r2)
 
 
+@pytest.mark.parametrize("name,kw", [("random_rotation_z", dict(max_angle=np.pi / 6)),
+                                     ("random_scale", dict(lo=0.9, hi=1.1)),
+                                     ("random_scale", dict(lo=0.5, hi=2.0))])
+def test_geometric_transform_keywords_equal(cloud, name, kw):
+    """The keywords the classification driver's vote augmentation passes
+    (`lo`, `hi`) and the rotation bound, as the JAX signatures take them."""
+    coords = cloud[0]
+    r1, r2 = np.random.default_rng(3), np.random.default_rng(3)
+    np.testing.assert_array_equal(getattr(J, name)(coords, r1, **kw),
+                                  getattr(T, name)(coords, r2, **kw))
+    _same_state(r1, r2)
+
+
 @pytest.mark.parametrize("seed", range(8))  # each applies in some seeds, not in others
 @pytest.mark.parametrize("name", ["chromatic_auto_contrast", "chromatic_translation",
                                   "chromatic_jitter"])
