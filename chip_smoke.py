@@ -14,8 +14,12 @@ Phases, in order; any failure exits non-zero:
      dependent step of its k-step chain beside its bound; K2 at every pair
      of Res16UNet34C and of its data gradient, on a bench scene's level 0
      and level 3, with whole row tiles lacking every offset and with a 5^3
-     kernel; K1's, K2's and K4's register and spill counts from the build,
-     no spill allowed;
+     kernel; K2 and K3 at the ST nets' widths (32 to 256) on the level-1
+     rulebooks of a 5-column batch of bench frames at K = 29 (the hybrid
+     region) and K = 81 (the 4-D hypercube), and at Cout = 512 (K2 at
+     (512, 512) on level 3 and at (512, 256) and its data gradient on level
+     2, K3 at (512, 512)); K1's, K2's and K4's register and spill counts
+     from the build, no spill allowed;
   3. the stage-1 path at full width: ins_infer over 4 bench-size synthetic
      scenes (150,528 points, 512 segment slots, 4,096 edge slots) through
      infer.infer_scenes, labels exported to a temporary directory, and one
@@ -87,8 +91,8 @@ Phases, in order; any failure exits non-zero:
      through cli.stage2_train_pointgroup.train_step, batches built ahead
      by the host prefetcher as the driver builds them: the prepare phase
      (no clustering), then the clustering and the ScoreNet, each 2
-     warm-up, 6 timed and 2 fenced steps (host batch, voxelise, unet,
-     clustering, scorenet, loss, backward, optimizer); K2's, K3's and K4's
+     warm-up, 4 timed and 2 fenced steps (host batch, voxelise, unet,
+     clustering, scorenet, loss, backward, optimizer); every kernel's
      launch counts are read around the timed steps of each; then one step
      with every K2 and K3 call held against its plain version;
  15. one PointGroup train step (m=8, with the clustering) at float32 convs
@@ -102,8 +106,8 @@ Phases, in order; any failure exits non-zero:
      cli.stage2_test_semantic.test_semantic_kpconv, at seeded weights with
      nonzero deformable offset kernels: 100% coverage and finite logits,
      spheres per scene, the fenced split (pyramid, encoder, decoder, host
-     vote), per-level neighbour-overflow rates, peak memory; then one
-     sphere's pyramid (integer arrays and points equal) and logits (within
+     vote), per-level neighbour-overflow rates, peak memory, no kernel
+     launched (K1-K4 counted around it); then one sphere's pyramid (integer arrays and points equal) and logits (within
      1e-4 of their magnitude) on the card and on the CPU;
  15b. KPConv training (no kernel): cli.stage2_train_kpconv.main at its
      defaults (KPFCNN, first_features_dim 64, point cap 2^15, 4 spheres a
@@ -120,6 +124,22 @@ Phases, in order; any failure exits non-zero:
      batch, whose loss must fall to half; then the KPCNN classification
      driver at its defaults and introspect_kpconv --mode erf on the
      trainer's checkpoint; K1-K4 launch counts around each driver;
+ 15c. the rest of the MinkUNet family: cli.demo_semantic.main on a bench
+     scene written as a PLY, at its defaults (Res16UNet34C, 2 cm, 2^17
+     voxels), with --variant MinkUNetHyper, --variant ResUNet18INBN and
+     --conv1_kernel_size 5 (seconds a run, the fenced phases, every
+     kernel's launches, one output vertex per kept point); train steps at full width through
+     cli.stage2_train_minkunet.train_step of STResTesseract16UNet18A (K =
+     81) and STRes16UNet18A (K = 29) on 4 bench frames of 2^15 voxels
+     (2^17 5-column voxels) and of MinkUNetHyper14INBN on 2^17 voxels of
+     bench scenes, each 2 warm-ups, 4 timed steps (every kernel's launches
+     a step, s/step, voxels/s, peak memory) and one step with every K2 and
+     K3 call held against its plain version; BilateralCRF-Res16UNet34C's
+     forward at 2^17 voxels, 10 iterations (seconds, peak memory, every
+     kernel's launches); then STResTesseract16UNet18A, MinkUNetHyper14INBN
+     and BilateralCRF-Res16UNet14A card vs CPU at 2,048 rows (logits within
+     the MinkUNet tolerance, MinkUNetHyper14INBN's within a fixed 3e-2, the
+     CRF's integer rows equal);
  16. each phase's wall seconds, a `kernels` JSON line, the card line, then
      the device line as the last.
 
@@ -159,6 +179,10 @@ K2_PAIRS = [(3, 32), (32, 32), (32, 64), (64, 64), (64, 128), (128, 128), (128, 
 # whose input needs no gradient)
 K2_DGRAD_PAIRS = list(dict.fromkeys((co, ci) for ci, co in K2_PAIRS if ci != 3))
 K2_TIMED = (384, 256)  # the widest pair: the one the kernels line reports
+# the ST nets' block widths (STRes16UNet18A's encoder) for K2 and K3 at K = 29
+# and K = 81, over bench scene 0 in ST_FRAMES frames of ST_FRAME_CAP voxels
+ST_PAIRS = [(32, 32), (64, 64), (128, 128), (256, 256)]
+ST_FRAMES, ST_FRAME_CAP = 4, 2 ** 15
 K2_RTOL = 1e-4  # of max|plain|: only the order of the float32 sums differs
 # K2's device time: launches queued behind a spin of this many cycles
 # (about 10 ms)
@@ -190,6 +214,13 @@ S1_LOSS_RTOL, S1_GRAD_RTOL, S1_STAT_TOL = 1e-5, 1e-4, 1e-5
 # MinkUNet card vs CPU: the tolerance tests/test_torch_minkunet.py holds the
 # port to against JAX (bf16 products, float32 sums in another order)
 LOGIT_ATOL, LOGIT_RTOL, ARGMAX_AGREE = 2e-4, 1e-3, 0.99
+# MinkUNetHyper14INBN's logits card vs CPU, absolute: its instance norms
+# over a few dozen voxels a scene at the coarse levels of the 1,500-voxel
+# batch amplify the bf16 rounding that the card's and the CPU's float32 sums
+# in another order can flip. Measured on an H100 1.52e-2 and 1.60e-2 (max
+# |logit| 5.84), where bf16 itself moves the CPU's logits by 4.79e-2
+# against float32 convs.
+INBN_LOGIT_ATOL = 3e-2
 # PointGroup: the evaluation CLI's defaults (cli/stage2_test_pointgroup.py)
 PG_M, PG_POINT_CAP, PG_VOXEL_CAP, PG_RADIUS = 16, 2 ** 17, 2 ** 16, 0.03
 # submanifold convs per forward: the U-Net's stem, 4 per level in its 2 blocks
@@ -203,7 +234,7 @@ PG_PAIRS = ([(6, 16)] + [(16 * i, 16 * i) for i in range(1, 8)]
 PG_K1_PAIRS = [(32 * i, 16 * i) for i in range(1, 7)]
 # PointGroup training: the training driver's defaults (cli/stage2_train_pointgroup.py)
 PGT_BATCH, PGT_LR, PGT_INSTANCE_CAP = 4, 1e-3, 256
-PGT_WARMUP, PGT_STEPS, PGT_FENCED = 2, 6, 2
+PGT_WARMUP, PGT_STEPS, PGT_FENCED = 2, 4, 2
 # submanifold convs of the U-Net alone (the prepare phase); with the
 # clustering the ScoreNet's join them (PG_SUBM_PER_FORWARD)
 PG_SUBM_UNET = 1 + 7 * 4 + 6 * 5
@@ -723,11 +754,42 @@ def k2_sites(torch, dev, m: int, kernel: int = 3):
     return build_subm_rulebook(st, kernel)
 
 
+def bench_frames(torch, dev, frames=ST_FRAMES, cap=ST_FRAME_CAP):
+    """A 5-column (batch, x, y, z, t) batch: bench scene 0 in `frames`
+    frames, frame t shifted by t cm along x, each voxelised at 2 cm and cut
+    to `cap` voxels, t the frame index; (SparseTensor, labels) on `dev`."""
+    from seggroup_tpu_torch.cli.stage2_common import scene_to_training_tuple
+    from seggroup_tpu_torch.data.synthetic import BENCH_SCENE, make_synthetic_scene
+    from seggroup_tpu_torch.data.voxel_dataset import make_voxel_batch
+    from seggroup_tpu_torch.sparse.tensor import SparseTensor
+
+    c, col, lab = scene_to_training_tuple(make_synthetic_scene(seed=0, **BENCH_SCENE), {},
+                                          None, "", False)
+    parts = []
+    for t in range(frames):
+        vb = make_voxel_batch([(c + np.array([0.01 * t, 0.0, 0.0]), col, lab)], cap, VOXEL)
+        n = int(vb.num)
+        coords = np.concatenate([vb.coords[:n], np.full((n, 1), t, np.int32)], 1)
+        parts.append((coords, vb.feats[:n], vb.labels[:n]))
+    m = frames * cap
+    coords = np.zeros((m, 5), np.int32)
+    feats = np.zeros((m, 3), np.float32)
+    labels = np.full(m, 255, np.int32)
+    n = sum(len(p[0]) for p in parts)
+    coords[:n] = np.concatenate([p[0] for p in parts])
+    feats[:n] = np.concatenate([p[1] for p in parts])
+    labels[:n] = np.concatenate([p[2] for p in parts])
+    st = SparseTensor(torch.from_numpy(coords), torch.from_numpy(feats),
+                      torch.arange(m) < n, torch.tensor(n, dtype=torch.int32))
+    return st.to(dev), torch.from_numpy(labels).to(dev)
+
+
 def bench_rulebooks(torch, dev):
-    """The level-0 and level-3 rulebooks that Res16UNet34C builds for bench
-    scene 0 voxelised at 2 cm into 2^17 rows (the capacity binds at level
-    0; level 3 holds 16,384 rows, padding rows among them), built on the
-    card."""
+    """The rulebooks that Res16UNet34C builds for bench scene 0 voxelised at
+    2 cm into 2^17 rows at levels 0 (the capacity binds), 2 and 3 (16,384
+    rows, padding rows among them), and the level-1 rulebooks of the ST
+    nets' hybrid (K = 29) and hypercube (K = 81) regions over `bench_frames`
+    (65,536 rows), all built on the card."""
     from seggroup_tpu_torch.cli.stage2_common import scene_to_training_tuple
     from seggroup_tpu_torch.cli.stage2_test_semantic import level_caps
     from seggroup_tpu_torch.cli.stage2_train_minkunet import batch_to_device
@@ -736,17 +798,26 @@ def bench_rulebooks(torch, dev):
     from seggroup_tpu_torch.sparse.conv import build_subm_rulebook, downsample_coords
     from seggroup_tpu_torch.sparse.tensor import SparseTensor
 
+    def down(st, cap):
+        coords, valid, num = downsample_coords(st, cap)[:3]
+        return SparseTensor(coords, torch.zeros((cap, 1), device=dev), valid, num)
+
     scene = scene_to_training_tuple(make_synthetic_scene(seed=0, **BENCH_SCENE), {}, None,
                                     "", False)
     st, _ = batch_to_device(make_voxel_batch([scene], CAPACITY, VOXEL), dev)
-    rb0 = build_subm_rulebook(st, 3)
+    out = {"l0": (build_subm_rulebook(st, 3), " bench level 0")}
     caps = level_caps(CAPACITY)
     for lvl in range(3):
-        coords, valid, num = downsample_coords(st, caps[lvl + 1])[:3]
-        st = SparseTensor(coords, torch.zeros((caps[lvl + 1], 1), device=dev), valid, num)
-    rb3 = build_subm_rulebook(st, 3)
-    return [(rb0, " bench level 0"),
-            (rb3, f" bench level 3 ({int(st.valid.sum())} valid rows)")]
+        st = down(st, caps[lvl + 1])
+        if lvl:
+            out[f"l{lvl + 1}"] = (build_subm_rulebook(st, 3), f" bench level {lvl + 1} "
+                                  f"({int(st.valid.sum())} valid rows)")
+    st1 = down(bench_frames(torch, dev)[0], ST_FRAMES * ST_FRAME_CAP // 2)
+    for conv_type, kvol in (("spatial_hypercube_temporal_hypercross", 29), ("hypercube", 81)):
+        out[f"st{kvol}"] = (build_subm_rulebook(st1, 3, conv_type=conv_type),
+                            f" bench frames level 1 ({int(st1.valid.sum())} valid rows, "
+                            f"{conv_type})")
+    return out
 
 
 def kernel_build_lines(log: str) -> list[tuple[str, int, int]]:
@@ -847,13 +918,18 @@ def check_subm_conv(torch, dev, card, bench):
     cases += [((64, 64), rb_lonely, " rows without neighbours"),
               ((96, 96), rb_ragged, f" M={m - 13}")]
     cases += [(c, rb_full, " (data gradient)") for c in K2_DGRAD_PAIRS if c not in K2_PAIRS]
-    (rb_l0, l0), (rb_l3, l3) = bench
+    (rb_l0, l0), (rb_l2, l2), (rb_l3, l3) = bench["l0"], bench["l2"], bench["l3"]
     cases += [((3, 32), rb_l0, l0), ((32, 32), rb_l0, l0),
               ((384, 256), rb_l3, l3), ((256, 384), rb_l3, l3 + " (data gradient)"),
               ((128, 128), rb_holes, " tiles without any offset"),
               ((3, 32), rb_k125, " 5^3 kernel")]
-    worst, timed = 0.0, None
-    for (cin, cout), rb, note in cases:
+    # this slice's shapes: ResUNet's and MinkUNetHyper's Cout = 512, the ST
+    # nets' K = 29 and K = 81
+    new = [((512, 512), rb_l3, l3), ((512, 256), rb_l2, l2),
+           ((256, 512), rb_l2, l2 + " (data gradient)")]
+    new += [(c, bench[key][0], bench[key][1]) for key in ("st29", "st81") for c in ST_PAIRS]
+    worst, timed, shapes = 0.0, None, {}
+    for i, ((cin, cout), rb, note) in enumerate(cases + new):
         rows, kvol = rb.shape
         f = torch.randn(rows, cin, generator=g, device=dev).to(torch.bfloat16)
         w = (torch.randn(kvol, cin, cout, generator=g, device=dev)
@@ -862,11 +938,13 @@ def check_subm_conv(torch, dev, card, bench):
         err, t = k2_case(torch, f, w, rb, note, card, timed=not edge)
         if (cin, cout) == K2_TIMED and not note:
             timed = t
+        if i >= len(cases):
+            shapes[f"({cin},{cout}) K={kvol} M={rows}"] = t
         worst = max(worst, err)
     return {"name": "subm_conv", "route": "cuda",
             "source": "seggroup_tpu_torch/csrc/subm_conv.cu",
             "replaces": "seggroup_tpu/sparse/pallas_conv.py:268",
-            "max_abs_err": worst, **timed}
+            "max_abs_err": worst, **timed, "new_shapes": shapes}
 
 
 def run_stage2_path(torch, dev, card):
@@ -1029,12 +1107,16 @@ def check_subm_dw(torch, dev, card, bench):
     cases = [(c, rb_full, "") for c in K2_PAIRS]
     cases += [((64, 64), rb_lonely, " rows without neighbours"),
               ((96, 96), rb_ragged, f" M={m - 13}")]
-    (rb_l0, l0), (rb_l3, l3) = bench
+    (rb_l0, l0), (rb_l3, l3) = bench["l0"], bench["l3"]
     cases += [((3, 32), rb_l0, l0), ((32, 32), rb_l0, l0),
               ((384, 256), rb_l3, l3), ((256, 256), rb_l3, l3)]
-    max_err, timed = 0.0, None
-    for (cin, cout), rb, note in cases:
-        rows = rb.shape[0]
+    n_old = len(cases)
+    # this slice's shapes: the ST nets' K = 29 and K = 81, and Cout = 512
+    cases += [(c, bench[key][0], bench[key][1]) for key in ("st29", "st81") for c in ST_PAIRS]
+    cases += [((512, 512), rb_l3, l3)]
+    max_err, timed, shapes = 0.0, None, {}
+    for i, ((cin, cout), rb, note) in enumerate(cases):
+        rows, kvol = rb.shape
         pairs_present = int((rb < rows).sum())
         f = torch.randn(rows, cin, generator=g, device=dev).to(torch.bfloat16)
         d = torch.randn(rows, cout, generator=g, device=dev).to(torch.bfloat16)
@@ -1042,7 +1124,7 @@ def check_subm_dw(torch, dev, card, bench):
         again = cuda_subm_dw.subm_dw_cuda(f, d, rb)
         want = subm_dw_plain(f, d, rb, torch.bfloat16)
         cin_p, cout_p = -(-cin // 8) * 8, -(-cout // 8) * 8
-        slabs, slab_rows = cuda_subm_dw.slabs_for(rows, 27, cin_p, cout_p, sms)
+        slabs, slab_rows = cuda_subm_dw.slabs_for(rows, kvol, cin_p, cout_p, sms)
         pairs, counts = cuda_subm_dw.compact_pairs_cuda(rb, slabs, slab_rows)
         want_pairs, want_counts = cuda_subm_dw.compact_pairs_plain(rb, slabs, slab_rows)
         torch.cuda.synchronize()
@@ -1051,7 +1133,8 @@ def check_subm_dw(torch, dev, card, bench):
         compact_equal = (torch.equal(counts, want_counts)
                          and torch.equal(pairs[filled], want_pairs[filled]))
         del pairs, want_pairs, filled
-        line = (f"K3 {cuda_subm_dw.regime(cin)} ({cin},{cout}){note}: max |kernel - plain| = "
+        line = (f"K3 {cuda_subm_dw.regime(cin)} ({cin},{cout}) K={kvol}{note}: max |kernel - "
+                f"plain| = "
                 f"{err:.3e} = {err / scale:.2e} of max|plain| (sums over {rows} rows, "
                 f"{pairs_present / rows:.2f} present neighbours per row; {slabs} slabs of "
                 f"{slab_rows} rows, tile {cuda_subm_dw.tile(cin_p, cout_p)}; "
@@ -1073,16 +1156,16 @@ def check_subm_dw(torch, dev, card, bench):
                              reps=30, warmup=3)
         sum_ms = 0.0
         if slabs > 1:
-            ws = torch.zeros((slabs, 27, cin_p, cout_p), dtype=torch.float32, device=dev)
+            ws = torch.zeros((slabs, kvol, cin_p, cout_p), dtype=torch.float32, device=dev)
             sum_ms = cuda_ms(lambda: cuda_subm_dw.sum_slabs_cuda(ws), reps=30, warmup=3)
             del ws
         plain_ms = cuda_ms(lambda: subm_dw_plain(f, d, rb, torch.bfloat16), reps=3, warmup=1)
-        a = torch.cat([f, f.new_zeros(1, cin)])[rb.long()].reshape(rows, 27 * cin)
+        a = torch.cat([f, f.new_zeros(1, cin)])[rb.long()].reshape(rows, kvol * cin)
         library_ms = cuda_ms(lambda: torch.matmul(a.T, d), reps=20, warmup=2)
         del a
         # the bytes K3 must move (bf16 feats and dout, int32 rulebook, f32
         # dW), and 2*Cin*Cout operations per present pair
-        nbytes = rows * cin * 2 + rows * cout * 2 + rows * 27 * 4 + 27 * cin * cout * 4
+        nbytes = rows * cin * 2 + rows * cout * 2 + rows * kvol * 4 + kvol * cin * cout * 4
         flops = 2 * pairs_present * cin * cout
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
         bound = max(t_bytes, t_ops)
@@ -1092,13 +1175,15 @@ def check_subm_dw(torch, dev, card, bench):
               f"product {ms - compact_ms - sum_ms:.4f} ms), plain {plain_ms:.3f} ms, library "
               f"{library_ms:.4f} ms, bound {bound:.4f} ms ({by}); "
               f"{flops / ms / 1e9:.1f} TFLOP/s on {card}", flush=True)
+        t = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound, bound_by=by)
         if (cin, cout) == K2_TIMED and not note:
-            timed = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound,
-                         bound_by=by)
+            timed = t
+        if i >= n_old:
+            shapes[f"({cin},{cout}) K={kvol} M={rows}"] = t
     return {"name": "subm_dw", "route": "cuda",
             "source": "seggroup_tpu_torch/csrc/subm_dw.cu",
             "replaces": "seggroup_tpu/sparse/pallas_conv.py:644",
-            "max_abs_err": max_err, **timed}
+            "max_abs_err": max_err, **timed, "new_shapes": shapes}
 
 
 def _train_setup(torch, dev, variant, caps, seed):
@@ -1913,7 +1998,7 @@ def run_pointgroup_train_path(torch, dev, card):
     scenes, batches built ahead by the host prefetcher as the driver builds
     them, through cli.stage2_train_pointgroup.train_step: the prepare phase
     (no clustering, no score loss), then the clustering and the ScoreNet,
-    each 2 warm-up steps, 6 timed unfenced and 2 fenced. The clustering
+    each 2 warm-up steps, 4 timed unfenced and 2 fenced. The clustering
     steps cluster on heads made from each batch's labels
     (_cluster_on_labels), so that the ScoreNet works as it would after
     the prepare phase, and each must give a proposal. Checks the launch
@@ -1924,8 +2009,6 @@ def run_pointgroup_train_path(torch, dev, card):
     from seggroup_tpu_torch.cli.stage2_train_pointgroup import train_step
     from seggroup_tpu_torch.data.pg_wire import unpack_pg_batch
     from seggroup_tpu_torch.device import PhaseClock
-    from seggroup_tpu_torch.ops import cuda_cc
-    from seggroup_tpu_torch.sparse import cuda_subm_conv, cuda_subm_dw
     from seggroup_tpu_torch.utils.prefetch import HostPrefetcher
 
     scenes = [_pg_scene(i)[1:] for i in range(N_SCENES)]
@@ -1955,7 +2038,9 @@ def run_pointgroup_train_path(torch, dev, card):
                   f"{time.perf_counter() - t0:.3f} s", flush=True)
 
             torch.cuda.reset_peak_memory_stats(dev)
-            cuda_subm_conv.launches = cuda_subm_dw.launches = cuda_cc.launches = 0
+            mods = _kernel_counts()
+            for mod in mods.values():
+                mod.launches = 0
             points, dropped, props = [], [], []
             t0 = time.perf_counter()
             for _ in range(PGT_STEPS):
@@ -1965,8 +2050,7 @@ def run_pointgroup_train_path(torch, dev, card):
                 props.append(step(clustering, unpack_pg_batch(w, PG_VOXEL_CAP, dev)))
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            launches = {"subm_conv": cuda_subm_conv.launches, "subm_dw": cuda_subm_dw.launches,
-                        "cc_sweep": cuda_cc.launches}
+            launches = {name: mod.launches for name, mod in mods.items()}
             peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
             props = [int(x) for x in props]
 
@@ -1988,9 +2072,10 @@ def run_pointgroup_train_path(torch, dev, card):
                 raise AssertionError(f"PointGroup training ({mode}): K2 launched "
                                      f"{launches['subm_conv']} times, K3 "
                                      f"{launches['subm_dw']} in {PGT_STEPS} steps")
-            if (launches["cc_sweep"] >= PGT_STEPS) != clustering:
+            if (launches["cc_sweep"] >= PGT_STEPS) != clustering or launches["masked_fps"]:
                 raise AssertionError(f"PointGroup training ({mode}): K4 launched "
-                                     f"{launches['cc_sweep']} times in {PGT_STEPS} steps")
+                                     f"{launches['cc_sweep']} times in {PGT_STEPS} steps, K1 "
+                                     f"{launches['masked_fps']}")
             if clustering and min(props + fenced_props) < 1:
                 raise AssertionError(f"PointGroup training ({mode}): a step gave no proposal: "
                                      f"timed {props}, fenced {fenced_props}")
@@ -2343,10 +2428,12 @@ def run_kpconv_path(torch, dev, card):
     log: list = []
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    miou, _, ap = test_semantic_kpconv(model, scenes, KP_POINT_CAP, KP_RADIUS, KP_VOTES, 20,
-                                       phase_seconds=phases, scene_log=log)
-    torch.cuda.synchronize()
+    (miou, _, ap), launches = _count_launches(
+        torch, lambda: test_semantic_kpconv(model, scenes, KP_POINT_CAP, KP_RADIUS, KP_VOTES,
+                                            20, phase_seconds=phases, scene_log=log))
     wall = time.perf_counter() - t0
+    if any(launches.values()):
+        raise AssertionError(f"KPConv inference launched a kernel: {launches}")
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
     for rec in log:
         if rec["coverage"] != 1.0 or not rec["logits_finite"]:
@@ -2380,7 +2467,7 @@ def run_kpconv_path(torch, dev, card):
           f"equal at all {KPCONV_LAYERS} levels, logits within {err:.3g} of max "
           f"{scale:.4g} (bound {KP_LOGIT_RTOL} of it), regulariser {ra:.6g} vs {rb:.6g}",
           flush=True)
-    return {"spheres": spheres, "seconds_per_scene": wall / KP_SCENES}
+    return {"spheres": spheres, "seconds_per_scene": wall / KP_SCENES, "launches": launches}
 
 
 # ---------------------------------------------------------------------------
@@ -2738,6 +2825,258 @@ def run_kpcnn_and_introspection(torch, dev, card, work):
     return cls_launches, erf_launches
 
 
+# ---------------------------------------------------------------------------
+# The rest of the MinkUNet family: the demo, ST and MinkUNetHyper training,
+# the mean-field CRF
+# ---------------------------------------------------------------------------
+
+# the demo at its defaults and in the three other configurations, with the
+# submanifold convs each forward runs: Res16UNet34C's 47, and 1 + 6 groups
+# of 2 blocks of 2 for the ResUNet trunk
+DEMO_RUNS = [("Res16UNet34C", [], 47),
+             ("MinkUNetHyper", ["--variant", "MinkUNetHyper"], 25),
+             ("ResUNet18INBN", ["--variant", "ResUNet18INBN"], 25),
+             ("Res16UNet34C, 5^3 stem", ["--conv1_kernel_size", "5"], 47)]
+# full-width train steps through cli.stage2_train_minkunet.train_step: the
+# two ST nets on bench_frames (2^17 5-column voxels), MinkUNetHyper14INBN on
+# two bench scenes (2^17 voxels); with each forward's submanifold convs
+# (K3 launches a step; K2 launches a step are twice that less the stem's
+# data gradient)
+NEW_TRAIN = [("STResTesseract16UNet18A", 33), ("STRes16UNet18A", 33),
+             ("MinkUNetHyper14INBN", 13)]
+NEW_WARMUP, NEW_STEPS = 2, 4
+CRF_VARIANT = "BilateralCRF-Res16UNet34C"
+
+
+def run_demo_path(torch, dev, card):
+    """cli.demo_semantic.main on bench scene 1 written as a PLY, in the four
+    DEMO_RUNS configurations at the demo's defaults otherwise (2 cm, 2^17
+    voxels, seeded weights); each run's seconds, its fenced phases, every
+    kernel's launches (K2's only expected) and peak memory; the output PLY
+    must hold one vertex per kept input point. Returns each kernel's
+    launches over the four runs."""
+    from seggroup_tpu_torch.cli import demo_semantic
+    from seggroup_tpu_torch.cli.stage2_common import VALID_CLASS_IDS
+    from seggroup_tpu_torch.data.ply import read_ply, write_ply
+    from seggroup_tpu_torch.data.synthetic import BENCH_SCENE, make_synthetic_scene
+    from seggroup_tpu_torch.data.voxel_dataset import make_voxel_batch
+
+    scene = make_synthetic_scene(seed=1, **BENCH_SCENE)
+    pts = scene.points[:, :3].astype(np.float32)
+    rgb = np.clip((scene.points[:, 3:6] + 1.0) * 127.5, 0, 255).astype(np.uint8)
+    kept = int((make_voxel_batch([(pts.astype(np.float64), rgb.astype(np.float32),
+                                   np.zeros(len(pts), np.int32))], CAPACITY, VOXEL)
+                .point2voxel[0] >= 0).sum())
+    total = dict.fromkeys(_kernel_counts(), 0)
+    with tempfile.TemporaryDirectory() as work:
+        path, out = os.path.join(work, "scene.ply"), os.path.join(work, "pred.ply")
+        write_ply(path, {"x": pts[:, 0], "y": pts[:, 1], "z": pts[:, 2],
+                         "red": rgb[:, 0], "green": rgb[:, 1], "blue": rgb[:, 2]})
+        for label, argv, want_k2 in DEMO_RUNS:
+            phases: dict[str, float] = {}
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            (_, lab), counts = _count_launches(
+                torch, lambda: demo_semantic.main(["--ply", path, "--out", out, *argv],
+                                                  phase_seconds=phases))
+            wall = time.perf_counter() - t0
+            peak = _peak_gib(torch, dev)
+            written = len(read_ply(out)["vertex"])
+            line = (f"demo_semantic {label} on a bench scene ({len(pts)} points, {kept} kept "
+                    f"at capacity {CAPACITY}): {wall:.3f} s a run, fenced "
+                    + ", ".join(f"{k} {v:.4f} s" for k, v in phases.items())
+                    + f"; kernel launches {counts}; peak {peak:.2f} GiB; {written} vertices "
+                    f"written; on {card}")
+            if written != kept or len(lab) != kept:
+                raise AssertionError(f"{line}: not one vertex per kept point")
+            if counts != {**dict.fromkeys(counts, 0), "subm_conv": want_k2}:
+                raise AssertionError(f"{line}: {want_k2} K2 launches and no other expected")
+            if not np.isin(lab, VALID_CLASS_IDS).all():
+                raise AssertionError(f"{line}: labels outside the 20 NYU40 ids")
+            print(line, flush=True)
+            total = {name: total[name] + c for name, c in counts.items()}
+    return total
+
+
+def _bench_pair_batch(torch, dev):
+    """Bench scenes 0 and 1 voxelised at 2 cm into 2^17 rows (the capacity
+    binds in the first), with their labels, on `dev`."""
+    from seggroup_tpu_torch.cli.stage2_common import scene_to_training_tuple
+    from seggroup_tpu_torch.cli.stage2_train_minkunet import batch_to_device
+    from seggroup_tpu_torch.data.synthetic import BENCH_SCENE, make_synthetic_scene
+    from seggroup_tpu_torch.data.voxel_dataset import make_voxel_batch
+
+    scenes = [scene_to_training_tuple(make_synthetic_scene(seed=i, **BENCH_SCENE), {}, None,
+                                      "", False) for i in range(2)]
+    return batch_to_device(make_voxel_batch(scenes, CAPACITY, VOXEL), dev)
+
+
+def run_new_train_path(torch, dev, card):
+    """The NEW_TRAIN nets at full width through train_step (SGD lr 0.1,
+    PolyLR, bf16 convs): NEW_WARMUP warm-ups, NEW_STEPS timed steps (every
+    kernel's launches read around them, K2's and K3's only expected), then
+    one step with every K2 and K3 call held against its plain version
+    (CheckedDispatch). Returns each net's launches over its timed steps."""
+    from seggroup_tpu_torch.cli.stage2_test_semantic import level_caps
+    from seggroup_tpu_torch.cli.stage2_train_minkunet import train_step
+    from seggroup_tpu_torch.models import get_model
+    from seggroup_tpu_torch.solvers import make_optimizer, make_schedule
+
+    frames = bench_frames(torch, dev)
+    pair = _bench_pair_batch(torch, dev)
+    out = {}
+    for name, convs in NEW_TRAIN:
+        st, labels = frames if name.startswith("ST") else pair
+        model = get_model(name, out_channels=20, level_caps=level_caps(CAPACITY), seed=0,
+                          device=dev)
+        optimizer, scheduler = make_optimizer("SGD", model.parameters(),
+                                              make_schedule("PolyLR", 0.1, max_iter=60000))
+        losses = []
+        t0 = time.perf_counter()
+        for _ in range(NEW_WARMUP):
+            losses.append(train_step(model, optimizer, scheduler, st, labels)[0])
+        torch.cuda.synchronize()
+        warm = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats(dev)
+
+        def timed_steps():
+            for _ in range(NEW_STEPS):
+                losses.append(train_step(model, optimizer, scheduler, st, labels)[0])
+
+        t0 = time.perf_counter()
+        _, launches = _count_launches(torch, timed_steps)
+        wall = time.perf_counter() - t0
+        peak = _peak_gib(torch, dev)
+        t0 = time.perf_counter()
+        with CheckedDispatch(torch) as checked:
+            losses.append(train_step(model, optimizer, scheduler, st, labels)[0])
+        torch.cuda.synchronize()
+        checked_s = time.perf_counter() - t0
+        loss_values = [float(x) for x in losses]
+        kvols = sorted({key[4] for key in checked.worst})
+        line = (f"{name} train step at full width, {int(st.num)} voxels of {st.capacity} "
+                f"({st.coords.shape[1]}-column coords), SGD lr 0.1 PolyLR: "
+                f"{wall / NEW_STEPS:.4f} s/step over {NEW_STEPS} steps "
+                f"({NEW_WARMUP} warm-ups {warm:.3f} s), {NEW_STEPS * int(st.num) / wall:.1f} "
+                f"voxels/s; per step {launches['subm_conv'] / NEW_STEPS:.1f} K2 and "
+                f"{launches['subm_dw'] / NEW_STEPS:.1f} K3 launches at K in {kvols} (counts "
+                f"over the steps {launches}); peak "
+                f"{peak:.2f} GiB; checked step ({checked_s:.3f} s): {checked.summary()}, "
+                f"{len(checked.empty)} shapes with all-zero plain results; losses "
+                f"{[round(x, 4) for x in loss_values]}; on {card}")
+        if launches != {**dict.fromkeys(launches, 0), "subm_dw": convs * NEW_STEPS,
+                        "subm_conv": (2 * convs - 1) * NEW_STEPS}:
+            raise AssertionError(f"{line}: {convs} K3 and {2 * convs - 1} K2 launches a step "
+                                 "and no other expected")
+        if checked.calls != {"K2": 2 * convs - 1, "K3": convs}:
+            raise AssertionError(f"{line}: the checked step made {checked.calls} calls")
+        if not all(np.isfinite(loss_values)):
+            raise AssertionError(f"{line}: a loss is not finite")
+        print(line, flush=True)
+        out[name] = launches
+        del model, optimizer, scheduler
+    return out
+
+
+def run_crf_path(torch, dev, card):
+    """get_model(CRF_VARIANT) forward at 2^17 voxels of bench scene 0, the
+    voxels' colours into the 6-D bilateral grid, 10 mean-field iterations:
+    seconds (and the backbone's alone), peak memory, every kernel's
+    launches (K2 only: the backbone's 47). Returns the launches."""
+    from seggroup_tpu_torch.cli.stage2_test_semantic import level_caps
+    from seggroup_tpu_torch.models import get_model
+
+    st, _ = _bench_pair_batch(torch, dev)
+    colors = (st.feats + 1.0) * 127.5
+    model = get_model(CRF_VARIANT, out_channels=20, level_caps=level_caps(CAPACITY), seed=0,
+                      device=dev)
+    with torch.no_grad():
+        model(st, colors)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model(st, colors, apply_filter=False)
+        torch.cuda.synchronize()
+        backbone_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        out, launches = _count_launches(torch, model, st, colors)
+        wall = time.perf_counter() - t0
+        cell_id = model.crf.cells(st, colors)[0]
+    peak = _peak_gib(torch, dev)
+    cells = int(torch.unique(cell_id[st.valid]).numel())
+    line = (f"{CRF_VARIANT} forward at {int(st.num)} voxels (capacity {CAPACITY}), "
+            f"{model.crf.iterations} mean-field iterations over {cells} bilateral cells, 13 "
+            f"offsets: {wall:.4f} s (the backbone alone {backbone_s:.4f} s), peak "
+            f"{peak:.2f} GiB, kernel launches {launches}; on {card}")
+    if launches != {**dict.fromkeys(launches, 0), "subm_conv": SUBM_PER_FORWARD}:
+        raise AssertionError(f"{line}: {SUBM_PER_FORWARD} K2 launches and no other expected")
+    if not (torch.isfinite(out).all() and (out[~st.valid] == 0).all()):
+        raise AssertionError(f"{line}: logits not finite or not zero on padding")
+    print(line, flush=True)
+    return launches
+
+
+def new_models_card_vs_cpu(torch, dev):
+    """STResTesseract16UNet18A on a 2,048-row 5-column batch (bench_frames
+    at 2 frames of 1,024), MinkUNetHyper14INBN and BilateralCRF-
+    Res16UNet14A on a 2,048-row batch of 1,500 voxels, the same weights on
+    the card (K2) and on the CPU (plain): logits within the MinkUNet
+    tolerance, MinkUNetHyper14INBN's within INBN_LOGIT_ATOL, argmaxes
+    agreeing on ARGMAX_AGREE of the voxels, the CRF's integer rows equal.
+    The line also prints how far bf16 itself moves the CPU's logits (the
+    same net with float32 convs)."""
+    import functools
+
+    from seggroup_tpu_torch.models import get_model, minkunet
+
+    m = 2048
+    caps = [m, m // 2, m // 4, m // 8, m // 8]
+    frames, _ = bench_frames(torch, "cpu", frames=2, cap=m // 2)
+    small, _ = _small_batch(torch, m, 1500, 5)
+    colors = torch.from_numpy(np.random.default_rng(6).uniform(0, 255, (m, 3)).astype(
+        np.float32))
+    for name, st in (("STResTesseract16UNet18A", frames), ("MinkUNetHyper14INBN", small),
+                     ("BilateralCRF-Res16UNet14A", small)):
+        args = (colors,) if "CRF" in name else ()
+        outs, models = [], []
+        for d in (dev, "cpu"):
+            model = get_model(name, out_channels=20, level_caps=caps, seed=1, device=d)
+            with torch.no_grad():
+                outs.append(model(st.to(d), *(a.to(d) for a in args)).cpu())
+            models.append(model)
+        subm_conv = minkunet.subm_conv
+        minkunet.subm_conv = functools.partial(subm_conv, compute_dtype=torch.float32)
+        try:
+            with torch.no_grad():
+                y32 = models[1](st, *args)
+        finally:
+            minkunet.subm_conv = subm_conv
+        x, y = outs
+        n = int(st.num)
+        ok = st.valid
+        diff, spread = float((x - y).abs().max()), float((y - y32).abs().max())
+        agree = float((x[ok].argmax(1) == y[ok].argmax(1)).float().mean())
+        agree32 = float((y[ok].argmax(1) == y32[ok].argmax(1)).float().mean())
+        line = (f"card vs CPU, {name} at M={m} ({n} voxels, {st.coords.shape[1]}-column "
+                f"coords): logits max |card - CPU| = {diff:.3e} (max |logit| "
+                f"{float(y.abs().max()):.3f}; bf16 moves the CPU's by {spread:.3e} against "
+                f"float32 convs), argmax agrees on {agree:.4f} of voxels ({agree32:.4f} "
+                "bf16 against float32 on the CPU)")
+        within = (diff <= INBN_LOGIT_ATOL if name == "MinkUNetHyper14INBN"
+                  else torch.allclose(x, y, rtol=LOGIT_RTOL, atol=LOGIT_ATOL))
+        if not (within and agree >= ARGMAX_AGREE):
+            raise AssertionError(line)
+        if not (x[~ok] == 0).all():
+            raise AssertionError(f"{line}: card logits not zero on padding")
+        if "CRF" in name:
+            rows = [mdl.crf.cells(st.to(d), colors.to(d)) for mdl, d in zip(models,
+                                                                              (dev, "cpu"))]
+            if not all(torch.equal(a.cpu(), b) for a, b in zip(*rows)):
+                raise AssertionError(f"{line}: the CRF's cell rows differ")
+            line += "; the CRF's cell_id, tgt_rows and tgt_ok equal"
+        print(line, flush=True)
+
+
 def build_all() -> None:
     """Build every kernel, one nvcc per source, all started together."""
     from seggroup_tpu_torch.ops import cuda_cc, cuda_fps
@@ -2820,38 +3159,46 @@ def main() -> int:
     pg_train = phase("PointGroup training", run_pointgroup_train_path, torch, dev, card)
     phase("PointGroup checked step", pointgroup_train_checked_step, torch, dev)
     phase("PointGroup training card vs CPU", pointgroup_train_card_vs_cpu, torch, dev, card)
-    phase("KPConv inference", run_kpconv_path, torch, dev, card)
+    kp_infer = phase("KPConv inference", run_kpconv_path, torch, dev, card)
     with tempfile.TemporaryDirectory() as kp_work:
         kp_train = phase("KPConv training", run_kpconv_train_path, torch, dev, card, kp_work)
         phase("KPConv training card vs CPU", kpconv_train_card_vs_cpu, torch, dev, card)
         kpcnn_launches, erf_launches = phase("KPCNN and introspection",
                                              run_kpcnn_and_introspection, torch, dev, card,
                                              kp_work)
+    demo = phase("demo_semantic", run_demo_path, torch, dev, card)
+    new_train = phase("ST and MinkUNetHyper training", run_new_train_path, torch, dev, card)
+    crf = phase("CRF forward", run_crf_path, torch, dev, card)
+    phase("ST, MinkUNetHyper and CRF card vs CPU", new_models_card_vs_cpu, torch, dev)
     print("wall seconds by phase: " + "; ".join(f"{k} {v:.2f}" for k, v in seconds.items())
           + f"; total {sum(seconds.values()):.2f}", flush=True)
 
-    # this slice's paths (KPConv training, KPCNN classification, the
-    # introspection) run no kernel: each kernel keeps the count of the last
-    # path that runs it (K1 stage-1 inference in the fast configuration, K2
-    # the evaluation driver, K3 and K4 PointGroup training), and each
-    # kernel's counts on every path, these included, stand beside it.
-    kp_paths = {"kpconv_training": kp_train["launches"],
-                "kpcnn_classification": kpcnn_launches, "introspect_kpconv": erf_launches}
+    # K2's count is this slice's demo runs, K3's its training steps; K1 and
+    # K4, which this slice's paths do not run, keep the count of the last
+    # path that runs them (K1 stage-1 inference in the fast configuration,
+    # K4 PointGroup training); each kernel's counts on every path stand
+    # beside it.
+    counted_paths = {"kpconv_inference": kp_infer["launches"],
+                     "kpconv_training": kp_train["launches"],
+                     "kpcnn_classification": kpcnn_launches,
+                     "introspect_kpconv": erf_launches, "demo_semantic": demo,
+                     "crf_forward": crf,
+                     **{f"training_{n}": c for n, c in new_train.items()}}
+    prepare, clustering = pg_train[False], pg_train[True]
     k1["launches"] = fast_fps
     k1["launches_by_path"] = {"stage1_inference": launches["masked_fps"],
                               "stage1_inference_fast": fast_fps,
-                              "stage1_training": train_fps, "pointgroup_training": 0,
-                              "kpconv_inference": 0}
-    prepare, clustering = pg_train[False], pg_train[True]
-    k2["launches"] = driver_k2
+                              "stage1_training": train_fps,
+                              "pointgroup_training_prepare": prepare["masked_fps"],
+                              "pointgroup_training_clustering": clustering["masked_fps"]}
+    k2["launches"] = demo["subm_conv"]
     k2["launches_by_path"] = {"stage2_semantic_inference": inference_k2,
                               "stage2_test_semantic_driver": driver_k2,
-                              "kpconv_inference": 0,
                               "stage2_training": train["subm_conv"],
                               "pointgroup_inference": pointgroup["subm_conv"],
                               "pointgroup_training_prepare": prepare["subm_conv"],
                               "pointgroup_training_clustering": clustering["subm_conv"]}
-    k3["launches"] = prepare["subm_dw"] + clustering["subm_dw"]
+    k3["launches"] = sum(c["subm_dw"] for c in new_train.values())
     k3["launches_by_path"] = {"stage2_training": train["subm_dw"],
                               "pointgroup_training_prepare": prepare["subm_dw"],
                               "pointgroup_training_clustering": clustering["subm_dw"]}
@@ -2862,7 +3209,7 @@ def main() -> int:
                               "pointgroup_training_prepare": prepare["cc_sweep"],
                               "pointgroup_training_clustering": clustering["cc_sweep"]}
     for k, name in ((k1, "masked_fps"), (k2, "subm_conv"), (k3, "subm_dw"), (k4, "cc_sweep")):
-        k["launches_by_path"].update({path: c[name] for path, c in kp_paths.items()})
+        k["launches_by_path"].update({path: c[name] for path, c in counted_paths.items()})
     print(json.dumps({"kernels": [k1, k2, k3, k4]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,11 @@
 """Weights of the JAX models -> state_dicts of the port's: SegGroupGNN
 (`params_from_flax`), MinkUNet (`minkunet_params_from_flax`), PointGroup
 (`pointgroup_params_from_flax`), KPFCNN (`kpconv_params_from_flax`) and
-KPCNN (`kpcnn_params_from_flax`).
+KPCNN (`kpcnn_params_from_flax`). `minkunet_params_from_flax` also maps
+every other voxel family of the registry, whose port keeps the flax names:
+ResUNet and MinkUNetHyper (`final_fc`, the instance norms' `{name}_in`),
+SparseResNet, the registry's `kpcnn`, and CRFWrapped (`backbone/...`, the
+CRF's (K, C, C) `crf/kernel` as it is).
 
 The JAX variables are `{"params": ..., "batch_stats": ...}` trees of numpy
 arrays (`jax.tree.map(np.asarray, variables)`). Flax `Dense` kernels are

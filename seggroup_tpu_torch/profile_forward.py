@@ -3,6 +3,7 @@ on the card.
 
     python -m seggroup_tpu_torch.profile_forward
         [--path stage1|stage2|train|pointgroup|kpconv_train] [--seed 0] [--top 15]
+        [--walls 1]
 
 stage1: SegGroupGNN ins_infer on a bench scene (150,528 points).
 stage2: Res16UNet34C on a bench scene voxelised at 2 cm into 2^17 voxels
@@ -19,10 +20,11 @@ kpconv_train: one KPConv train step (cli/stage2_train_kpconv.train_step,
 the pyramid built first) at the training driver's defaults: 4 spheres of a
 bench scene at point cap 2^15, neighbour caps calibrated on that batch.
 
-Prints the wall seconds with and without the profiler, the summed device
-kernel time, the device's busy share (kernel time over the wall time
-without the profiler, which does not inflate it, and over the profiled wall
-time), the number of kernel launches, the kernels that take the most device
+Prints the wall seconds with and without the profiler (with `--walls N`,
+N unprofiled runs back to back, each printed, and their median), the summed
+device kernel time, the device's busy share (kernel time over the wall
+time without the profiler, which does not inflate it, and over the profiled
+wall time), the number of kernel launches, the kernels that take the most device
 time, and the device time by group (K2, K3, other GEMMs, sum reductions,
 the up convs' index backward, rulebook sorts and searches, the rest); for
 the train step K2's time is split into the forward's (a forward profiled
@@ -215,6 +217,8 @@ def main(argv=None) -> None:
                                        "kpconv_train"], default="stage1")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--top", type=int, default=15)
+    ap.add_argument("--walls", type=int, default=1,
+                    help="unprofiled runs timed after the warm-up; the median is reported")
     args = ap.parse_args(argv)
 
     dev = resolve_device("cuda")
@@ -225,7 +229,8 @@ def main(argv=None) -> None:
     group_keys = {"pointgroup": GROUPS_POINTGROUP,
                   "kpconv_train": GROUPS_KPCONV}.get(args.path, GROUPS)
     _seconds(forward)  # warm-up
-    plain_s = _seconds(forward)
+    walls = [_seconds(forward) for _ in range(args.walls)]
+    plain_s = float(np.median(walls))
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         profiled_s = _seconds(forward)
@@ -235,6 +240,9 @@ def main(argv=None) -> None:
     launches = sum(e.count for e in kernels)
     kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
     print(f"{what}, on {card}")
+    if args.walls > 1:
+        print(f"walls without the profiler, {args.walls} runs: "
+              + ", ".join(f"{w:.4f}" for w in walls))
     print(f"wall {plain_s:.4f} s without the profiler, {profiled_s:.4f} s with it")
     device_s = device_us / 1e6
     print(f"device kernel time {device_s:.4f} s over {launches} launches; "
@@ -264,7 +272,7 @@ def main(argv=None) -> None:
         print(f"  of K2: forward {k2_ms:.3f} ms in {k2_n} launches (profiled alone), data "
               f"gradient {total_ms - k2_ms:.3f} ms in {total_n - k2_n} launches")
         groups["K2 forward (profiled alone)"] = [k2_ms, k2_n]
-    print(json.dumps({"card": card, "path": args.path, "wall_s": plain_s,
+    print(json.dumps({"card": card, "path": args.path, "wall_s": plain_s, "walls_s": walls,
                       "profiled_wall_s": profiled_s, "device_s": device_s,
                       "busy_share": device_s / plain_s, "launches": launches, "top": top,
                       "groups": {k: {"ms": v[0], "launches": v[1]} for k, v in groups.items()}}))

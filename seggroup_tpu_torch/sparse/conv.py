@@ -18,16 +18,20 @@
     torch ops (and differentiate through them), as the JAX side runs them
     outside any Pallas kernel.
 
+5-column spatio-temporal coords (batch, x, y, z, t) take the explicit
+offsets path over `region_offsets(conv_type, k, 4)`, and the stride-2 maps
+carry t through unchanged. `global_pool` is the per-scene mean or max.
+
 Not ported here: the windowed Pallas plans (`windows=`, sparse/plan.py,
-device_plan.py), the merge-join rulebook path (`assume_sorted=True`), the
-5-column spatio-temporal coords, and global pooling."""
+device_plan.py) and the merge-join rulebook path (`assume_sorted=True`)."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from seggroup_tpu_torch.ops.segment_ops import invert_permutation, lexsort, segment_sum
+from seggroup_tpu_torch.ops.segment_ops import (invert_permutation, lexsort, segment_max,
+                                                segment_mean, segment_sum)
 from seggroup_tpu_torch.sparse import cuda_subm_conv, cuda_subm_dw
 from seggroup_tpu_torch.sparse.hashing import (INT32_MAX, lookup, lower_bound,
                                                pack_keys, sort_coords)
@@ -77,14 +81,25 @@ def region_offsets(conv_type: str, kernel_size: int = 3,
 _CUBE_TYPES = ("hypercube", "spatial_hypercube", "spatial_hypercube_temporal_hypercross")
 
 
+def rulebook_volume(kernel_size: int, conv_type: str, ndim: int) -> int:
+    """K of the (M, K) rulebook that `build_subm_rulebook` builds for
+    (kernel_size, conv_type) over (M, 1 + ndim) coords."""
+    if ndim == 3 and conv_type in _CUBE_TYPES:
+        return kernel_size ** 3
+    return len(region_offsets(conv_type, kernel_size, ndim))
+
+
 def build_subm_rulebook(st: SparseTensor, kernel_size: int = 3,
                         assume_sorted: bool = False,
                         conv_type: str = "spatial_hypercube",
                         xy_bits: tuple[int, int] = (14, 14)) -> torch.Tensor:
     """(M, K) int32 neighbour row per kernel offset; == M where absent.
-    Output sites == input sites (submanifold semantics). Kernel 3 takes the
-    grouped z-run search (8 lower bounds for 27 offsets), other cube kernels
-    the generic per-offset lookup."""
+    Output sites == input sites (submanifold semantics). On 4-column coords
+    kernel 3 takes the grouped z-run search (8 lower bounds for 27
+    offsets), other cube kernels the generic per-offset lookup; 5-column
+    coords and the cross regions the per-offset lookup over
+    `region_offsets(conv_type, kernel_size, 4)` (29 offsets for the hybrid
+    region, 81 for the hypercube)."""
     if assume_sorted:
         raise NotImplementedError("the assume_sorted (merge-join) path is not ported")
     ndim = st.coords.shape[1] - 1
@@ -156,8 +171,8 @@ def _k3_cols_searched(st, hi, lo, hi_s, lo_s, order_pad, hi_pad, lo_pad,
 
 
 def build_subm_rulebook_offsets(st: SparseTensor, offsets: np.ndarray) -> torch.Tensor:
-    """(M, K) rulebook for an explicit (K, 3) offset list over (M, 4) coords:
-    one exact lookup per offset."""
+    """(M, K) rulebook for an explicit (K, ndim) offset list over
+    (M, 1 + ndim) coords: one exact lookup per offset."""
     order, hi_s, lo_s = sort_coords(st.coords, st.valid)
     m = st.capacity
     offs = torch.as_tensor(np.asarray(offsets), dtype=torch.int32, device=st.coords.device)
@@ -350,3 +365,12 @@ def inverse_conv_up(st_coarse: SparseTensor, weights: torch.Tensor, indice_key: 
         out += (torch.where(sel, g, 0) @ w[kk]).to(torch.float32)
     out = torch.where((fine_valid & (out_row < cap_c))[:, None], out, 0.0)
     return SparseTensor(indice_key["fine_coords"], out, fine_valid, indice_key["fine_num"])
+
+
+def global_pool(st: SparseTensor, num_batches: int, mode: str = "mean") -> torch.Tensor:
+    """(num_batches, C) per-scene mean or max of the valid rows' features
+    (MinkowskiGlobalPooling); an empty scene gives 0."""
+    ids = torch.where(st.valid, st.coords[:, 0], num_batches)
+    if mode == "mean":
+        return segment_mean(st.feats, ids, num_batches)
+    return segment_max(st.feats, ids, num_batches)

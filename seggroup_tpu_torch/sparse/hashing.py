@@ -2,14 +2,13 @@
 (seggroup_tpu/sparse/hashing.py).
 
 Key packing, in int32 with the same wrapping arithmetic as the JAX side:
-hi = (batch << (x_bits + y_bits)) | (x << y_bits) | y, lo = z. Invalid rows
-take the key (INT32_MAX, INT32_MAX). The (hi, lo) pair order is carried by
+hi = (batch << (x_bits + y_bits)) | (x << y_bits) | y, lo = z; 5-column
+spatio-temporal coords (batch, x, y, z, t) pack the frame index into the low
+key, lo = (z << 9) | t, for t < 512. Invalid rows take the key (INT32_MAX,
+INT32_MAX). The (hi, lo) pair order is carried by
 one int64 key, (hi << 32) + (lo + 2^31), so a stable argsort is the stable
 lexsort of (lo, hi) and `torch.searchsorted` is the lower bound of the JAX
-binary search, position for position.
-
-Only 4-column (batch, x, y, z) coords are ported; the 5-column
-spatio-temporal packing raises NotImplementedError."""
+binary search, position for position."""
 
 from __future__ import annotations
 
@@ -22,12 +21,13 @@ INT32_MAX = 2 ** 31 - 1
 
 def pack_keys(coords: torch.Tensor,
               xy_bits: tuple[int, int] = (14, 14)) -> tuple[torch.Tensor, torch.Tensor]:
-    """coords (M, 4) int32 -> (hi, lo) int32 keys."""
-    if coords.shape[1] != 4:
-        raise NotImplementedError("only 4-column (batch, x, y, z) coords are ported")
+    """coords (M, 4) or (M, 5) int32 -> (hi, lo) int32 keys; a 5th column
+    is a frame index t < 512."""
     c = coords.to(torch.int32)
     xb, yb = xy_bits
     hi = (c[:, 0] << (xb + yb)) | (c[:, 1] << yb) | c[:, 2]
+    if c.shape[1] == 5:
+        return hi, (c[:, 3] << 9) | c[:, 4]
     return hi, c[:, 3]
 
 

@@ -217,6 +217,35 @@ def test_subm_dw_kernel_matches_plain(m, cin, cout, holes):
         assert (got[9] == 0).all()
 
 
+@pytest.mark.parametrize("m,cin,cout,kvol", [
+    (20000, 32, 32, 29),        # the ST nets' hybrid region
+    (20000, 256, 256, 29),
+    (20000, 64, 64, 81),        # the Tesseract's 4-D hypercube
+    (20000, 256, 256, 81),      # K2's 3-stage ring on the warp-specialised kernel
+    (8192, 512, 512, 27),       # ResUNet's and MinkUNetHyper's level 3: two N tiles
+])
+def test_subm_kernels_at_the_st_and_resunet_shapes(m, cin, cout, kvol):
+    """K2 and K3 at the kernel volumes and widths of the ST, Tesseract,
+    ResUNet and MinkUNetHyper nets, against their plain versions (1e-4 of
+    max|plain|), bit-equal across two runs."""
+    dev = _card()
+    rng = np.random.default_rng(m + kvol)
+    rb = rng.integers(0, m, size=(m, kvol)).astype(np.int32)
+    rb[rng.random((m, kvol)) < 0.7] = m
+    f = torch.from_numpy(rng.normal(size=(m, cin)).astype(np.float32)).to(torch.bfloat16)
+    w = torch.from_numpy((rng.normal(size=(kvol, cin, cout)) / np.sqrt(kvol * cin))
+                         .astype(np.float32)).to(torch.bfloat16)
+    d = torch.from_numpy(rng.normal(size=(m, cout)).astype(np.float32)).to(torch.bfloat16)
+    f, w, d, rb = f.to(dev), w.to(dev), d.to(dev), torch.from_numpy(rb).to(dev)
+    for kernel, plain, b in ((cuda_subm_conv.subm_conv_cuda, subm_conv_plain, w),
+                             (cuda_subm_dw.subm_dw_cuda, subm_dw_plain, d)):
+        got, again = kernel(f, b, rb), kernel(f, b, rb)
+        want = plain(f, b, rb, torch.bfloat16)
+        torch.cuda.synchronize()
+        assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+        assert torch.equal(got, again)
+
+
 @pytest.mark.parametrize("m,cin,cout,absent", [
     (20000, 32, 16, False),     # PointGroup's K = 1 branches: K3b shift 2
     (20000, 64, 32, False),     # K3b shift 1

@@ -156,15 +156,6 @@ def test_res16unet34c_forward_matches_jax():
     assert (got[150:] == 0).all()
 
 
-def test_not_ported_options_raise(shared):
-    port, _, _, ts = shared["Res16UNet14A"]
-    st5 = ts._replace(coords=torch.zeros((M_CAP, 5), dtype=torch.int32))
-    with pytest.raises(NotImplementedError):
-        port(st5, train=False)
-    with pytest.raises(NotImplementedError):
-        T.make_minkunet("STRes16UNet18A", device="cpu")
-
-
 def test_seeded_init_is_deterministic():
     a = T.make_minkunet("Res16UNet14A", out_channels=5, seed=4, device="cpu")
     b = T.make_minkunet("Res16UNet14A", out_channels=5, seed=4, device="cpu")

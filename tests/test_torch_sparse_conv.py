@@ -102,9 +102,6 @@ def test_rulebook_paths_not_ported_raise(sites):
     _, ts = sites
     with pytest.raises(NotImplementedError):
         T.build_subm_rulebook(ts, 3, assume_sorted=True)
-    st5 = ts._replace(coords=torch.zeros((512, 5), dtype=torch.int32))
-    with pytest.raises(NotImplementedError):
-        T.build_subm_rulebook(st5, 3)
 
 
 @pytest.mark.parametrize("cap_out", [256, 200, 64])  # 64 and 200 bind: num_out is 223

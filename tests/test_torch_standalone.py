@@ -41,6 +41,8 @@ def test_import_leaves_jax_out():
         "import seggroup_tpu_torch.cli.stage2_train_kpconv\n"
         "import seggroup_tpu_torch.cli.stage2_test_classification\n"
         "import seggroup_tpu_torch.cli.introspect_kpconv\n"
+        "import seggroup_tpu_torch.cli.demo_semantic, seggroup_tpu_torch.data.visualize\n"
+        "import seggroup_tpu_torch.models.resnet_sparse, seggroup_tpu_torch.models.crf\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert not bad, bad\n"
     )
@@ -183,3 +185,41 @@ def test_kpconv_drivers_default_to_the_card(driver, argv, tmp_path, monkeypatch)
     assert not any(tmp_path.iterdir())
     with pytest.raises(RuntimeError, match="CUDA"):
         KPCNN(num_classes=6)
+
+
+def test_registry_imports_no_model_until_asked():
+    """Importing the registry imports no model module; `get_model` imports
+    the named model's."""
+    code = ("import sys\n"
+            "import seggroup_tpu_torch.models as R\n"
+            "assert not [m for m in sys.modules if m.startswith('seggroup_tpu_torch.models.')]\n"
+            "R.get_model('Res16UNet14A', device='cpu')\n"
+            "assert 'seggroup_tpu_torch.models.seggroup' not in sys.modules\n"
+            "assert 'seggroup_tpu_torch.models.pointgroup' not in sys.modules\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_demo_and_registry_default_to_the_card(tmp_path, monkeypatch):
+    """The demo without --device runs on CUDA and raises where there is
+    none, before it writes anything; the registry's models, the sparse
+    ResNet and KPCNN heads and the CRF wrapper without device= too."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    from seggroup_tpu_torch.cli.demo_semantic import main
+    from seggroup_tpu_torch.models import get_model
+    from seggroup_tpu_torch.models.resnet_sparse import KPCNN, SparseResNet
+
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["--synthetic"])
+    assert not any(tmp_path.iterdir())
+    for name in ("MinkUNetHyper14INBN", "STResTesseract16UNet18A", "ResUNet18INBN",
+                 "BilateralCRF-Res16UNet14A", "ResNet14"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            get_model(name)
+    for make in (SparseResNet, KPCNN):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
