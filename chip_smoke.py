@@ -140,6 +140,29 @@ Phases, in order; any failure exits non-zero:
      and BilateralCRF-Res16UNet14A card vs CPU at 2,048 rows (logits within
      the MinkUNet tolerance, MinkUNetHyper14INBN's within a fixed 3e-2, the
      CRF's integer rows equal);
+ 15d. the pyramid plans: the native host library built from
+     csrc/seggroup_native.cpp and loaded (the run fails otherwise), its
+     subm_rulebook3, downsample_plan and subm_windows exactly equal to their
+     numpy fallbacks on a 2^17-voxel batch of the MinkUNet train phase;
+     that batch's 5-level plan built on the card bit-equal to the host's
+     (rulebooks, down maps, windows, use_window), each timed with and
+     without windows; Res16UNet34C train steps in three plan forms
+     (--plan_mode device: the float16 wire and the card's plan; --plan_mode
+     host; no plan on the float16 batch; the trainer's plans hold no
+     windows),
+     each from the seeded init over the same 5 batches, 2 warm-up and 3
+     timed steps, K2 and K3 launches a step, the first losses within the
+     card-vs-CPU step tolerance; PointGroup at the training driver's
+     defaults: one clustering step with --plan_mode host and one with
+     --plan_mode device on the same host batch (its device plan bit-equal
+     to the host plan; K2, K3, K4 counted), then the split program
+     (propose, then score_plan) beside the fused step with PyTorch's
+     deterministic algorithms on: outputs, loss, gradients and running
+     statistics bit-equal, the ScoreNet's device plan equal to its
+     searched rulebooks; then a
+     synthetic raw ScanNet scene of 50,000 vertices prepared by
+     cli.prepare_scannet at its defaults and cli.stage1_infer --ins_infer
+     over it on the card (label files at the vertex count, K1 counted);
  16. each phase's wall seconds, a `kernels` JSON line, the card line, then
      the device line as the last.
 
@@ -153,6 +176,7 @@ import platform
 import sys
 import tempfile
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -3077,6 +3101,425 @@ def new_models_card_vs_cpu(torch, dev):
         print(line, flush=True)
 
 
+# pyramid plans and the raw-scene path. MinkUNet in three plan forms
+# (the trainer's --plan_mode device and host, and no plan on the float16
+# batch), each from the same seeded weights over the same batches
+PLAN_FORMS = ("device", "host", "none")
+PLAN_WARMUP, PLAN_STEPS = 2, 3
+# a synthetic raw ScanNet scene: a 250 x 200 vertex room surface, 10 x 10
+# vertex segments, 12 instances; prepared at prepare_scannet's defaults
+RAW_GRID, RAW_SEG, RAW_POINTS = (250, 200), 10, 150528  # prepare_scannet's default points
+RAW_CATEGORIES = [("floor", 2), ("chair", 5), ("table", 7), ("sofa", 6), ("bed", 4),
+                  ("cabinet", 3), ("desk", 14), ("bookshelf", 10)]
+
+
+def plan_batches(torch):
+    """The MinkUNet train phase's batches (run_train_path: 8 augmented
+    bench-size scenes at 2^17 voxels, seed 1), steps 1 to 5, as VoxelBatches."""
+    from seggroup_tpu_torch.cli.stage2_common import scene_to_training_tuple
+    from seggroup_tpu_torch.cli.stage2_train_minkunet import make_train_batch
+    from seggroup_tpu_torch.data.synthetic import BENCH_SCENE, make_synthetic_scene
+
+    scenes = [scene_to_training_tuple(make_synthetic_scene(seed=i, **BENCH_SCENE), {}, None,
+                                      "", False) for i in range(TRAIN_POOL)]
+    return [make_train_batch(scenes.__getitem__, range(TRAIN_POOL), s + 1, 1, TRAIN_BATCH,
+                             CAPACITY, VOXEL, True) for s in range(PLAN_WARMUP + PLAN_STEPS)]
+
+
+def check_native(torch, vb, card):
+    """The native host library built from csrc/seggroup_native.cpp and
+    loaded (the run fails otherwise), and its plan builders held exactly
+    against their numpy fallbacks on a full-width batch: subm_rulebook3 at
+    2^17 rows, downsample_plan to 2^16, subm_windows of that rulebook."""
+    from seggroup_tpu_torch import native
+
+    t0 = time.perf_counter()
+    loaded = native.available()
+    build_s = time.perf_counter() - t0
+    print(f"native host library: {'loaded' if loaded else 'NOT loaded'} in {build_s:.2f} s"
+          f"{'' if loaded else ': ' + str(native.load_error())}", flush=True)
+    if not loaded:
+        raise AssertionError(f"the native host library did not load: {native.load_error()}")
+    coords, n = vb.coords, int(vb.num)
+
+    def run():
+        times, outs = {}, {}
+        for name, fn in (("subm_rulebook3", lambda: native.subm_rulebook3(coords, n, CAPACITY)),
+                         ("downsample_plan",
+                          lambda: native.downsample_plan(coords, n, CAPACITY // 2))):
+            t0 = time.perf_counter()
+            outs[name] = fn()
+            times[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        outs["subm_windows"] = native.subm_windows(outs["subm_rulebook3"], 256, 512)
+        times["subm_windows"] = time.perf_counter() - t0
+        return outs, times
+
+    lib, lib_s = run()
+    with native.numpy_fallbacks():
+        plain, plain_s = run()
+    for name in lib:
+        a, b = lib[name], plain[name]
+        for x, y in zip(a if isinstance(a, tuple) else (a,), b if isinstance(b, tuple) else (b,)):
+            if not np.array_equal(np.asarray(x), np.asarray(y)):
+                raise AssertionError(f"native {name} differs from its numpy fallback")
+    if lib["subm_windows"][2] != 0:
+        raise AssertionError(f"a sorted batch overflowed its windows: {lib['subm_windows'][2]}")
+    print("native vs numpy fallback on a 2^17-voxel batch (" + str(n) + " valid), exactly "
+          "equal: " + "; ".join(f"{k} {lib_s[k] * 1e3:.2f} ms vs {plain_s[k] * 1e3:.2f} ms"
+                                for k in lib) + f" (host clock, on the card's host; {card})",
+          flush=True)
+
+
+def _assert_plans_equal(torch, a, b, what):
+    def arr(x):
+        return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+    for lvl, (x, y) in enumerate(zip(a["rulebooks"], b["rulebooks"], strict=True)):
+        if not np.array_equal(arr(x), arr(y)):
+            raise AssertionError(f"{what}: rulebook {lvl} differs")
+    for lvl, (x, y) in enumerate(zip(a["down"], b["down"], strict=True)):
+        for k in ("coords", "num", "out_row", "delta"):
+            if not np.array_equal(arr(x[k]), arr(y[k])):
+                raise AssertionError(f"{what}: down map {lvl} {k} differs")
+    for lvl, (x, y) in enumerate(zip(a.get("windows", []), b.get("windows", []), strict=True)):
+        if (x is None) != (y is None):
+            raise AssertionError(f"{what}: windows {lvl} present on one side only")
+        if x is not None and not all(np.array_equal(arr(x[k]), arr(y[k]))
+                                     for k in ("rb_win", "win_base", "use_window")):
+            raise AssertionError(f"{what}: windows {lvl} differ")
+
+
+def run_plan_paths(torch, dev, card, vbs):
+    """Res16UNet34C train steps at the training driver's defaults in the
+    three plan forms (cli/stage2_train_minkunet.py --plan_mode device: the
+    float16 wire and the plan built on the card; --plan_mode host: the
+    float32 batch and the host plan; no plan on the float16 batch; the
+    plans without windows, as the trainer builds them), each
+    from the seeded init over the same batches, 2 warm-up and 3 timed
+    steps with the batch's packing or host plan, its transfer and any
+    plan built on the card inside the step. Checks the device plan
+    bit-equal to the host plan (rulebooks, down maps, windows, use_window),
+    both built with and without windows and timed, each form's K2 and K3 launches a step, and the first step's losses
+    within the card-vs-CPU step tolerance of one another. Returns each
+    form's launch counts."""
+    from seggroup_tpu_torch.cli.stage2_test_semantic import level_caps
+    from seggroup_tpu_torch.cli.stage2_train_minkunet import batch_on_device, train_step
+    from seggroup_tpu_torch.sparse.device_plan import (build_unet_plan_device,
+                                                       pack_voxel_batch, unpack_voxel_batch)
+    from seggroup_tpu_torch.sparse.plan import build_unet_plan
+
+    caps = level_caps(CAPACITY)
+    vb = vbs[0]
+    st, _ = unpack_voxel_batch(*pack_voxel_batch(vb), device=dev)
+    build_unet_plan_device(st.coords, st.num, caps)  # warm
+    secs = {(side, win): [] for side in ("card", "host") for win in (True, False)}
+    for _ in range(3):
+        for win in (True, False):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dplan = build_unet_plan_device(st.coords, st.num, caps, with_windows=win)
+            torch.cuda.synchronize()
+            secs["card", win].append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            hplan = build_unet_plan(vb.coords, int(vb.num), caps, with_windows=win)
+            secs["host", win].append(time.perf_counter() - t0)
+            if win:
+                _assert_plans_equal(torch, dplan, hplan, "MinkUNet device plan vs host plan")
+                use = [None if w is None else bool(w["use_window"]) for w in hplan["windows"]]
+
+    def ms(side, win):
+        return (f"{min(secs[side, win]) * 1e3:.2f} ms (of "
+                f"{[round(x * 1e3, 2) for x in secs[side, win]]})")
+
+    print(f"MinkUNet plan at capacity {CAPACITY} ({int(vb.num)} voxels), levels {caps}: "
+          f"device plan bit-equal to the host plan (windows on levels "
+          f"{[i for i, u in enumerate(use) if u is not None]}, use_window {use}); built on "
+          f"the card {ms('card', True)}, without windows as the trainer builds it "
+          f"{ms('card', False)}; on the host (native) {ms('host', True)}, without windows "
+          f"{ms('host', False)}; on {card}", flush=True)
+
+    mods = _kernel_counts()
+    out, first = {}, {}
+    for form in PLAN_FORMS:
+        model, optimizer, scheduler = _train_setup(torch, dev, "Res16UNet34C", caps, 0)
+        losses = []
+        for i, batch in enumerate(vbs):
+            if i == PLAN_WARMUP:
+                torch.cuda.synchronize()
+                for mod in mods.values():
+                    mod.launches = 0
+                t0 = time.perf_counter()
+            if form == "device":
+                st, labels, plan = batch_on_device(pack_voxel_batch(batch), None, dev, caps)
+            elif form == "host":
+                st, labels, plan = batch_on_device(
+                    batch, build_unet_plan(batch.coords, int(batch.num), caps,
+                                           with_windows=False), dev, caps)
+            else:
+                st, labels = unpack_voxel_batch(*pack_voxel_batch(batch), device=dev)
+                plan = None
+            losses.append(train_step(model, optimizer, scheduler, st, labels, plan=plan)[0])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: mod.launches for name, mod in mods.items()}
+        loss_values = [float(x) for x in losses]
+        if not np.isfinite(loss_values).all():
+            raise AssertionError(f"MinkUNet ({form} plan): non-finite loss {loss_values}")
+        if (launches["subm_conv"] != K2_PER_STEP * PLAN_STEPS
+                or launches["subm_dw"] != SUBM_PER_FORWARD * PLAN_STEPS
+                or launches["masked_fps"] or launches["cc_sweep"]):
+            raise AssertionError(f"MinkUNet ({form} plan): launches {launches} in "
+                                 f"{PLAN_STEPS} steps")
+        first[form] = loss_values[0]
+        out[form] = dict(launches, s_per_step=wall / PLAN_STEPS)
+        print(f"MinkUNet training, --plan_mode {form if form != 'none' else '(no plan, float16 batch)'}: "
+              f"{wall / PLAN_STEPS:.4f} s/step over {PLAN_STEPS} steps (packing or host plan, "
+              f"transfer, device plan and step); per step "
+              f"{launches['subm_conv'] / PLAN_STEPS:.1f} K2, {launches['subm_dw'] / PLAN_STEPS:.1f}"
+              f" K3 launches; losses {[round(x, 5) for x in loss_values]}; on {card}", flush=True)
+        del model, optimizer, scheduler
+    for form in ("host", "none"):
+        if abs(first[form] - first["device"]) > STEP_LOSS_ATOL:
+            raise AssertionError(f"MinkUNet first-step loss, {form} {first[form]} vs device "
+                                 f"{first['device']}")
+    print(f"MinkUNet first-step losses: device {first['device']:.6f}, host "
+          f"{first['host']:.6f}, none {first['none']:.6f} (within {STEP_LOSS_ATOL})", flush=True)
+    return out
+
+
+def run_pointgroup_plan_paths(torch, dev, card):
+    """PointGroup at the training driver's defaults on one host batch of the
+    4 bench scenes: one clustering step with --plan_mode host (the float32
+    batch, the 7-level host plan) and one with --plan_mode device (the same
+    batch's wire and the plan built on the card; that plan bit-equal to the
+    host plan), from the same seeded init, clustering on heads from the
+    labels (_cluster_on_labels), K2, K3 and K4 launches counted; then the
+    split program (propose, then score_plan) beside the fused step over the
+    host plan at the same weights, both with PyTorch's deterministic
+    algorithms on (the card's scatter-adds otherwise sum in a varying
+    order), through K2 and K3: proposals, heads, scores, the loss, every
+    gradient and the running statistics bit-equal; the ScoreNet's device
+    plan equal to the rulebooks the plan-less ScoreNet builds."""
+    from seggroup_tpu_torch.cli.stage2_train_pointgroup import (batch_on_device,
+                                                                make_train_batch, train_step)
+    from seggroup_tpu_torch.data.pg_wire import pack_pg_batch
+    from seggroup_tpu_torch.models.pointgroup import pointgroup_loss, propose
+    from seggroup_tpu_torch.sparse.conv import build_subm_rulebook, downsample_coords
+    from seggroup_tpu_torch.sparse.tensor import SparseTensor
+
+    scenes = [_pg_scene(i)[1:] for i in range(N_SCENES)]
+    raw = make_train_batch(scenes.__getitem__, range(N_SCENES), np.random.default_rng((1, 7)),
+                           PGT_BATCH, PG_POINT_CAP, PG_VOXEL_CAP, PGT_INSTANCE_CAP, VOXEL, True,
+                           plan_mode="host")
+    hb, (vcoords, num, p2v, hplan) = raw
+    wire = pack_pg_batch(hb, vcoords, num, p2v)
+    jitter = torch.rand(3, generator=torch.Generator().manual_seed(3)).to(dev)
+    mods = _kernel_counts()
+    out = {}
+    model, optimizer, scheduler = _pg_train_setup(torch, dev)  # a warm-up step, not counted
+    batch, plan = batch_on_device(wire, PG_VOXEL_CAP, dev)
+    _cluster_on_labels(torch, model, batch)
+    train_step(model, optimizer, scheduler, batch, True, jitter, plan=plan)
+    del model, optimizer, scheduler
+    for mode, r in (("host", raw), ("device", wire)):
+        model, optimizer, scheduler = _pg_train_setup(torch, dev)
+        torch.cuda.synchronize()
+        for mod in mods.values():
+            mod.launches = 0
+        t0 = time.perf_counter()
+        batch, plan = batch_on_device(r, PG_VOXEL_CAP, dev)
+        _cluster_on_labels(torch, model, batch)
+        loss, _, props = train_step(model, optimizer, scheduler, batch, True, jitter, plan=plan)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: mod.launches for name, mod in mods.items()}
+        if mode == "device":
+            _assert_plans_equal(torch, plan, hplan, "PointGroup device plan vs host plan")
+        if (launches["subm_conv"] != 2 * PG_SUBM_PER_FORWARD - 1
+                or launches["subm_dw"] != PG_SUBM_PER_FORWARD or launches["cc_sweep"] < 1
+                or int(props) < 1 or not np.isfinite(loss.item())):
+            raise AssertionError(f"PointGroup --plan_mode {mode}: launches {launches}, "
+                                 f"proposals {int(props)}, loss {float(loss)}")
+        out[mode] = dict(launches, seconds=wall)
+        print(f"PointGroup train step with the clustering, --plan_mode {mode}: {wall:.4f} s "
+              f"(transfer{', device plan' if mode == 'device' else ''} and step), loss "
+              f"{float(loss):.5f}, {int(props)} proposals, K2 {launches['subm_conv']}, K3 "
+              f"{launches['subm_dw']}, K4 {launches['cc_sweep']} launches; on {card}",
+              flush=True)
+        del model, optimizer, scheduler
+
+    batch, plan = batch_on_device(raw, PG_VOXEL_CAP, dev)
+    labels, inst, centroid, pointnum = batch[5:]
+
+    def fwd_bwd(form):
+        """(seconds, outputs, loss, gradients, running statistics, the
+        split's ScoreNet context) of one forward and backward."""
+        model, _, _ = _pg_train_setup(torch, dev)
+        _cluster_on_labels(torch, model, batch)
+        ctx = None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if form == "split":
+            _, score_plan = propose(model, *batch[:5], train=True, jitter=jitter, plan=plan)
+            ctx = score_plan[3]
+            o = model(*batch[:5], do_clustering=True, train=True, plan=plan,
+                      score_plan=score_plan)
+        else:
+            o = model(*batch[:5], do_clustering=True, train=True, jitter=jitter, plan=plan)
+        loss, _ = pointgroup_loss(o, labels, inst, centroid, pointnum, batch[2], batch[4],
+                                  num_instances_cap=PGT_INSTANCE_CAP, with_score=True)
+        loss.backward()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0, o, loss.detach(),
+                {k: p.grad.detach().clone() for k, p in model.named_parameters()},
+                {k: b.clone() for k, b in model.named_buffers()}, ctx)
+
+    # the card's scatter-adds sum in an order that changes from run to run
+    # (at float32 the heads of two runs differ by about 6e-5); PyTorch's
+    # deterministic algorithms fix that order, so that the two programs can
+    # be held bit for bit, through K2 and K3 at bf16 as the trainer runs
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            fused, split = fwd_bwd("fused"), fwd_bwd("split")
+        finally:
+            torch.use_deterministic_algorithms(False)
+    for name in ("proposal_of_point", "proposal_valid", "num_proposals", "semantic_scores",
+                 "pt_offsets", "scores"):
+        if not torch.equal(getattr(fused[1], name), getattr(split[1], name)):
+            raise AssertionError(f"split program: {name} differs from the fused step's")
+    for i, what in ((2, "loss"), (3, "gradients"), (4, "running statistics")):
+        a, b = (fused[i], split[i]) if i != 2 else ({"": fused[2]}, {"": split[2]})
+        bad = [k for k in a if not torch.equal(a[k], b[k])]
+        if bad:
+            raise AssertionError(f"split program: {what} differ from the fused step's: {bad[:4]}")
+    # the ScoreNet's plan, built on the card from the proposals' voxelisation,
+    # equals the rulebooks and down map the plan-less ScoreNet builds
+    vox, score_plan = split[5]["vox"], split[5]["unet_plan"]
+    cap = PG_VOXEL_CAP // 8
+    st = SparseTensor(vox.voxel_coords, torch.zeros((cap, 1), device=dev), vox.voxel_valid,
+                      vox.num_voxels)
+    coords_1, valid_1, num_1, out_row, _ = downsample_coords(st, cap // 2)
+    searched = [build_subm_rulebook(st, 3, xy_bits=(5, 5)),
+                build_subm_rulebook(SparseTensor(coords_1, st.feats[: cap // 2], valid_1, num_1),
+                                    3, xy_bits=(5, 5))]
+    if not (all(torch.equal(x, y) for x, y in zip(score_plan["rulebooks"], searched))
+            and torch.equal(score_plan["down"][0]["out_row"], out_row)):
+        raise AssertionError("the ScoreNet's device plan differs from its searched rulebooks")
+    print(f"PointGroup split program (propose, then score_plan) vs the fused step over the "
+          f"host plan, the same weights, PyTorch's deterministic algorithms on, bf16 through "
+          f"K2 and K3: {int(split[1].num_proposals)} proposals, the heads, the scores, the "
+          f"loss ({float(split[2]):.6f}), every gradient and the running statistics "
+          f"bit-equal; the ScoreNet's device plan ({int(vox.num_voxels)} voxels) equal to its "
+          f"searched rulebooks and down map; forward and backward {split[0]:.4f} s split vs "
+          f"{fused[0]:.4f} s fused; on {card}", flush=True)
+    out["split_s"], out["fused_s"] = split[0], fused[0]
+    return out
+
+
+def write_raw_scene(scans_dir, scene, seed=0):
+    """A synthetic raw ScanNet scene in ScanNet's files: <scene>_vh_clean_2.ply
+    (a RAW_GRID vertex surface, 2 cm apart, with bumps and colours),
+    <scene>_vh_clean_2.0.010000.segs.json (RAW_SEG x RAW_SEG vertex
+    segments, scattered ids), <scene>.aggregation.json (the floor and 11
+    objects of a few segments each). Returns the vertex count."""
+    from seggroup_tpu_torch.data.ply import write_ply
+
+    rng = np.random.default_rng(seed)
+    gw, gh = RAW_GRID
+    xs, ys = np.meshgrid(np.arange(gw), np.arange(gh), indexing="xy")
+    sx, sy = xs // RAW_SEG, ys // RAW_SEG
+    nsx, nsy = -(-gw // RAW_SEG), -(-gh // RAW_SEG)
+    seg_of = (sx + nsx * sy).ravel()
+    z = rng.uniform(0.0, 0.4, nsx * nsy)[seg_of] * (rng.random(nsx * nsy) < 0.3)[seg_of]
+    verts = np.stack([xs.ravel() * 0.02, ys.ravel() * 0.02, z + rng.normal(0, 0.002, z.shape)],
+                     1).astype(np.float32)
+    cols = rng.integers(0, 255, (nsx * nsy, 3))[seg_of] + rng.integers(-8, 8, (len(seg_of), 3))
+    cols = np.clip(cols, 0, 255).astype(np.uint8)
+    a = (ys[:-1, :-1] * gw + xs[:-1, :-1]).ravel()
+    faces = np.concatenate([np.stack([a, a + 1, a + gw], 1),
+                            np.stack([a + 1, a + gw + 1, a + gw], 1)]).astype(np.int32)
+    seg_ids = rng.permutation(10 ** 5)[: nsx * nsy]
+    groups, taken = [], set()
+    order = rng.permutation(nsx * nsy)
+    floor = [int(s) for s in order[: nsx * nsy // 3]]
+    groups.append({"objectId": 0, "label": "floor", "segments": [int(seg_ids[s]) for s in floor]})
+    taken.update(floor)
+    for obj in range(1, 12):
+        start = int(rng.choice([s for s in range(nsx * nsy) if s not in taken]))
+        segs = [s for s in (start, start + 1, start + nsx, start + nsx + 1)
+                if s < nsx * nsy and s not in taken]
+        taken.update(segs)
+        groups.append({"objectId": obj, "label": RAW_CATEGORIES[1 + obj % 7][0],
+                       "segments": [int(seg_ids[s]) for s in segs]})
+    d = os.path.join(scans_dir, scene)
+    os.makedirs(d, exist_ok=True)
+    write_ply(os.path.join(d, f"{scene}_vh_clean_2.ply"),
+              {"x": verts[:, 0], "y": verts[:, 1], "z": verts[:, 2], "red": cols[:, 0],
+               "green": cols[:, 1], "blue": cols[:, 2]}, faces)
+    with open(os.path.join(d, f"{scene}_vh_clean_2.0.010000.segs.json"), "w") as f:
+        json.dump({"segIndices": seg_ids[seg_of].tolist()}, f)
+    with open(os.path.join(d, f"{scene}.aggregation.json"), "w") as f:
+        json.dump({"segGroups": groups}, f)
+    return len(verts)
+
+
+def run_raw_scene_path(torch, dev, card, work):
+    """A synthetic raw scene of 50,000 vertices written under `work`,
+    prepared by cli.prepare_scannet at its defaults (150,528 points,
+    maxseg labels), then cli.stage1_infer --ins_infer on the card over the
+    prepared npz: its pseudo-label files written at the mesh's vertex
+    count, K1 launched at least once. Returns K1-K4's launches in the
+    inference."""
+    from seggroup_tpu_torch.cli import prepare_scannet, stage1_infer
+    from seggroup_tpu_torch.data.scannet import load_scene_npz
+
+    scans = os.path.join(work, "scans")
+    n_verts = write_raw_scene(scans, "scene0000_00")
+    with open(os.path.join(work, "labels.tsv"), "w") as f:
+        f.write("id\traw_category\tcategory\tnyu40id\n")
+        for i, (cat, nyu) in enumerate(RAW_CATEGORIES):
+            f.write(f"{i}\t{cat}\t{cat}\t{nyu}\n")
+    prepared = os.path.join(work, "prepared")
+    t0 = time.perf_counter()
+    results = prepare_scannet.main(["--scans_dir", scans, "--tsv",
+                                    os.path.join(work, "labels.tsv"), "--out", prepared,
+                                    "--label_style", "maxseg", "--workers", "1",
+                                    "--num_points", str(RAW_POINTS)])
+    prep_s = time.perf_counter() - t0
+    if [r[2] for r in results] != [None]:
+        raise AssertionError(f"prepare_scannet failed: {results}")
+    scene, extras = load_scene_npz(os.path.join(prepared, "maxseg", "scene0000_00.npz"))
+    n_weak = int((scene.weak_ins >= 0).sum())
+    if scene.points.shape != (RAW_POINTS, 6) or len(extras["unmap"]) != n_verts or n_weak < 5:
+        raise AssertionError(f"prepared scene: points {scene.points.shape}, unmap "
+                             f"{len(extras['unmap'])}, {n_weak} weak segments")
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        t0 = time.perf_counter()
+        _, launches = _count_launches(torch, stage1_infer.main, [
+            "--data_root", prepared, "--label_style", "maxseg", "--ins_infer",
+            "--exp_name", "raw"])
+        infer_s = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+    out_dir = os.path.join(work, "results", "raw", "scene0000_00", "ins_infer")
+    sem = np.loadtxt(os.path.join(out_dir, "final.sem.txt"), dtype=np.int64)
+    if len(sem) != n_verts or launches["masked_fps"] < 1:
+        raise AssertionError(f"stage 1 on the raw scene: {len(sem)} labels for {n_verts} "
+                             f"vertices, launches {launches}")
+    print(f"raw ScanNet scene ({n_verts} vertices, {int(scene.edge_valid.sum())} segment "
+          f"edges, {n_weak} weak segments) -> prepare_scannet at its defaults in "
+          f"{prep_s:.3f} s (host) -> stage1_infer --ins_infer on the card in {infer_s:.3f} s: "
+          f"{len(os.listdir(out_dir))} label files of {n_verts} vertices, K1 "
+          f"{launches['masked_fps']} launches (K2 {launches['subm_conv']}, K3 "
+          f"{launches['subm_dw']}, K4 {launches['cc_sweep']}); on {card}", flush=True)
+    return dict(launches, prep_s=prep_s, infer_s=infer_s)
+
+
 def build_all() -> None:
     """Build every kernel, one nvcc per source, all started together."""
     from seggroup_tpu_torch.ops import cuda_cc, cuda_fps
@@ -3170,41 +3613,51 @@ def main() -> int:
     new_train = phase("ST and MinkUNetHyper training", run_new_train_path, torch, dev, card)
     crf = phase("CRF forward", run_crf_path, torch, dev, card)
     phase("ST, MinkUNetHyper and CRF card vs CPU", new_models_card_vs_cpu, torch, dev)
+    vbs = phase("plan batches", plan_batches, torch)
+    phase("native library", check_native, torch, vbs[0], card)
+    plans = phase("MinkUNet plans", run_plan_paths, torch, dev, card, vbs)
+    del vbs
+    pg_plans = phase("PointGroup plans and split", run_pointgroup_plan_paths, torch, dev, card)
+    with tempfile.TemporaryDirectory() as raw_work:
+        raw_scene = phase("raw scene to stage 1", run_raw_scene_path, torch, dev, card, raw_work)
     print("wall seconds by phase: " + "; ".join(f"{k} {v:.2f}" for k, v in seconds.items())
           + f"; total {sum(seconds.values()):.2f}", flush=True)
 
-    # K2's count is this slice's demo runs, K3's its training steps; K1 and
-    # K4, which this slice's paths do not run, keep the count of the last
-    # path that runs them (K1 stage-1 inference in the fast configuration,
-    # K4 PointGroup training); each kernel's counts on every path stand
-    # beside it.
+    # each kernel's count is this slice's main path's: K2 and K3 the
+    # MinkUNet trainer's default --plan_mode device steps, K4 PointGroup's
+    # --plan_mode device step, K1 stage 1 on the prepared raw scene; each
+    # kernel's counts on every path stand beside it.
     counted_paths = {"kpconv_inference": kp_infer["launches"],
                      "kpconv_training": kp_train["launches"],
                      "kpcnn_classification": kpcnn_launches,
                      "introspect_kpconv": erf_launches, "demo_semantic": demo,
                      "crf_forward": crf,
-                     **{f"training_{n}": c for n, c in new_train.items()}}
+                     **{f"training_{n}": c for n, c in new_train.items()},
+                     **{f"minkunet_training_plan_{f}": plans[f] for f in PLAN_FORMS},
+                     "pointgroup_training_plan_host": pg_plans["host"],
+                     "pointgroup_training_plan_device": pg_plans["device"],
+                     "raw_scene_stage1_inference": raw_scene}
     prepare, clustering = pg_train[False], pg_train[True]
-    k1["launches"] = fast_fps
+    k1["launches"] = raw_scene["masked_fps"]
     k1["launches_by_path"] = {"stage1_inference": launches["masked_fps"],
                               "stage1_inference_fast": fast_fps,
                               "stage1_training": train_fps,
                               "pointgroup_training_prepare": prepare["masked_fps"],
                               "pointgroup_training_clustering": clustering["masked_fps"]}
-    k2["launches"] = demo["subm_conv"]
+    k2["launches"] = plans["device"]["subm_conv"]
     k2["launches_by_path"] = {"stage2_semantic_inference": inference_k2,
                               "stage2_test_semantic_driver": driver_k2,
                               "stage2_training": train["subm_conv"],
                               "pointgroup_inference": pointgroup["subm_conv"],
                               "pointgroup_training_prepare": prepare["subm_conv"],
                               "pointgroup_training_clustering": clustering["subm_conv"]}
-    k3["launches"] = sum(c["subm_dw"] for c in new_train.values())
+    k3["launches"] = plans["device"]["subm_dw"]
     k3["launches_by_path"] = {"stage2_training": train["subm_dw"],
                               "pointgroup_training_prepare": prepare["subm_dw"],
                               "pointgroup_training_clustering": clustering["subm_dw"]}
     k3["max_abs_err"] = max(k3["max_abs_err"], k3_pg_err)
     k3["pointgroup_pairs"] = k3_pg
-    k4["launches"] = clustering["cc_sweep"]
+    k4["launches"] = pg_plans["device"]["cc_sweep"]
     k4["launches_by_path"] = {"pointgroup_inference": pointgroup["cc_sweep"],
                               "pointgroup_training_prepare": prepare["cc_sweep"],
                               "pointgroup_training_clustering": clustering["cc_sweep"]}

@@ -4,9 +4,9 @@ point batch with compact instance ids, per-point instance centroids and
 per-instance point counts, and the batch's voxelisation for training.
 
 Numpy only; the same scenes give the same batch as the JAX package's. The
-wire format is `data/pg_wire.py`. Not ported: the host pyramid plans of
-`host_voxelize_plan(level_caps=...)` (sparse/plan.py, the JAX trainer's
-`--plan_mode host`); the port's returns the voxelisation alone."""
+wire format is `data/pg_wire.py`. `host_voxelize_plan(level_caps=...)`
+also builds the U-Net's pyramid plan on the host (sparse/plan.py, the
+trainers' `--plan_mode host`)."""
 
 from __future__ import annotations
 
@@ -17,6 +17,7 @@ import numpy as np
 
 from seggroup_tpu_torch.data import transforms as T
 from seggroup_tpu_torch.models.pointgroup import IGNORE
+from seggroup_tpu_torch.sparse.plan import build_unet_plan
 
 VALID_CLASS_IDS = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 14, 16, 24, 28, 33, 34, 36, 39)
 NYU40_TO_20 = np.full(41, IGNORE, np.int32)
@@ -128,14 +129,17 @@ def make_pg_batch(tuples, n_cap, i_cap, rng=None, augment=False,
     return PGHostBatch(coords, feats, batch_ids, valid, labels, inst, centroid, pointnum, semn)
 
 
-def host_voxelize_plan(hb: PGHostBatch, voxel_size: float, voxel_cap: int):
-    """The training batch's voxelisation on the host (the JAX function with
-    `level_caps=None`): the valid points' cells floor(coords / voxel_size),
-    shifted so that their least is 0, one voxel per distinct (batch, x, y,
-    z) in lexicographic order, the first `voxel_cap` kept. Returns
-    (voxel_coords (voxel_cap, 4) int32, num_voxels (those kept),
-    point2voxel (N,) int32 with voxel_cap for dropped and invalid points).
-    The JAX side's host pyramid plan is not ported."""
+def host_voxelize_plan(hb: PGHostBatch, voxel_size: float, voxel_cap: int,
+                       level_caps=None, window_levels: int | None = 0):
+    """The training batch's voxelisation on the host: the valid points'
+    cells floor(coords / voxel_size), shifted so that their least is 0, one
+    voxel per distinct (batch, x, y, z) in lexicographic order, the first
+    `voxel_cap` kept. Returns (voxel_coords (voxel_cap, 4) int32,
+    num_voxels (those kept), point2voxel (N,) int32 with voxel_cap for
+    dropped and invalid points), and with `level_caps` the U-Net's pyramid
+    plan over them as a fourth element (sparse/plan.build_unet_plan;
+    windows on the first `window_levels` levels, none by default, as the
+    JAX trainer builds it)."""
     n_valid = int(hb.valid.sum())
     ic = np.floor(hb.coords[:n_valid] / voxel_size).astype(np.int32)
     if n_valid:
@@ -148,4 +152,7 @@ def host_voxelize_plan(hb: PGHostBatch, voxel_size: float, voxel_cap: int):
     vcoords[:m] = vc[:m]
     p2v = np.full(len(hb.coords), voxel_cap, np.int32)
     p2v[:n_valid] = np.where(rank < voxel_cap, rank, voxel_cap)
-    return vcoords, np.int32(m), p2v
+    if level_caps is None:
+        return vcoords, np.int32(m), p2v
+    return (vcoords, np.int32(m), p2v,
+            build_unet_plan(vcoords, m, level_caps, window_levels=window_levels))

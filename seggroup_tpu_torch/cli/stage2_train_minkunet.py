@@ -5,19 +5,29 @@ PolyLR by default, the masked mean NLL with an ignore label, periodic
 validation that keeps the best checkpoint, and a STOP file.
 
 Host threads (utils/prefetch.py) build the augmented voxel batches in numpy
-ahead of the card; the main thread moves each batch to the card and runs
-`train_step`: the forward with BatchNorm batch statistics, the backward
-through the submanifold convs' kernels (K2 for the data gradient, K3 for the
-weight gradient), and the optimizer step. The confusion matrix accumulates
-on the card and is read every 10 iterations.
+ahead of the card (`make_batch`). `--plan_mode device`, the default as in
+the JAX driver, packs each batch into the compact wire (float16 features,
+int16 coordinates, uint8 labels: sparse/device_plan.pack_voxel_batch,
+which raises on coordinates at or beyond +-32,000 and on labels outside
+uint8), so that training and validation see the float16-rounded features
+the JAX driver sees, and the card builds the pyramid plan
+(`build_unet_plan_device`); `--plan_mode host` keeps the float32 batch
+and builds the plan on the host (sparse/plan.build_unet_plan, the native
+library). Neither plan holds window layouts, which the JAX driver's
+Pallas kernels read and the port's K2 and K3 do not (sparse/conv.py).
+The main thread moves each batch to the card (`batch_on_device`)
+and runs `train_step`: the forward over the plan with BatchNorm batch
+statistics, the backward through the submanifold convs' kernels (K2 for
+the data gradient, K3 for the weight gradient), and the optimizer step.
+The confusion matrix accumulates on the card and is read every 10
+iterations.
 
     python -m seggroup_tpu_torch.cli.stage2_train_minkunet --synthetic 16 --max_iter 100
     python -m seggroup_tpu_torch.cli.stage2_train_minkunet --synthetic 2 --max_iter 2 \\
-        --model Res16UNet14A --capacity 4096 --batch_size 2 --device cpu
+        --model Res16UNet14A --capacity 4096 --batch_size 2 --device cpu [--plan_mode host]
 
-Runs on the card unless `--device cpu`. Not ported: `--plan_mode` (the port
-builds no window plans), data parallelism (`--num_devices` > 1 raises; it
-waits for the port of parallel/dp.py)."""
+Runs on the card unless `--device cpu`. Not ported: data parallelism
+(`--num_devices` > 1 raises; it waits for the port of parallel/dp.py)."""
 
 from __future__ import annotations
 
@@ -39,6 +49,9 @@ from seggroup_tpu_torch.device import PhaseClock, resolve_device
 from seggroup_tpu_torch.eval.semantic import confusion_matrix, miou_from_confusion
 from seggroup_tpu_torch.models.minkunet import MinkUNet, make_minkunet
 from seggroup_tpu_torch.solvers import ScheduledLR, make_optimizer, make_schedule
+from seggroup_tpu_torch.sparse.device_plan import (build_unet_plan_device, pack_voxel_batch,
+                                                   unpack_voxel_batch)
+from seggroup_tpu_torch.sparse.plan import build_unet_plan, plan_to_device
 from seggroup_tpu_torch.sparse.tensor import SparseTensor
 from seggroup_tpu_torch.utils.checkpoint import CheckpointManager, lenient_restore
 from seggroup_tpu_torch.utils.logging import IOStream
@@ -58,17 +71,20 @@ def masked_nll(logits: torch.Tensor, labels: torch.Tensor, valid: torch.Tensor) 
 
 def train_step(model: MinkUNet, optimizer: torch.optim.Optimizer, scheduler: ScheduledLR,
                st: SparseTensor, labels: torch.Tensor,
-               phase_seconds: dict | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+               phase_seconds: dict | None = None,
+               plan: dict | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """One training step on the model's device: the forward with BatchNorm
-    batch statistics (which updates the running statistics), the loss, the
-    backward, the optimizer step and the learning-rate schedule. Returns
-    (loss, confusion matrix of the step's argmax over valid rows), both on
-    the device, so nothing waits for it. With `phase_seconds`, the device is
-    synchronised around "forward", "backward" and "optimizer", and their wall
-    seconds are added to the dict."""
+    batch statistics (which updates the running statistics) over the
+    batch's pyramid `plan` (built inside the forward without one), the
+    loss, the backward, the optimizer step and the learning-rate schedule.
+    Returns (loss, confusion matrix of the step's argmax over valid rows),
+    both on the device, so nothing waits for it. With `phase_seconds`, the
+    device is synchronised around "forward", "backward" and "optimizer",
+    and their wall seconds are added to the dict."""
     phase = PhaseClock(st.coords.device, phase_seconds)
     with phase("forward"):
-        logits = model(st, train=True)
+        # the nets without plans (ResUNet, MinkUNetHyper) take none
+        logits = model(st, train=True) if plan is None else model(st, train=True, plan=plan)
         loss = masked_nll(logits, labels, st.valid)
     with phase("backward"):
         optimizer.zero_grad(set_to_none=True)
@@ -99,6 +115,34 @@ def batch_to_device(vb: VoxelBatch, dev: torch.device) -> tuple[SparseTensor, to
     return st.to(dev), torch.from_numpy(vb.labels).to(dev)
 
 
+def make_batch(scene_tuple: Callable[[int], tuple], pool: Sequence[int], step: int, seed: int,
+               batch_size: int, capacity: int, voxel_size: float, augment: bool,
+               plan_mode: str = "device", caps: Sequence[int] | None = None) -> tuple:
+    """The batch of `step` as the JAX driver's `make_batch` ships it: with
+    plan_mode "device" (wire, None), the wire pack_voxel_batch's (coords
+    int16, feats float16, labels uint8, num); with "host" (VoxelBatch, host
+    plan over `caps`)."""
+    vb = make_train_batch(scene_tuple, pool, step, seed, batch_size, capacity, voxel_size,
+                          augment)
+    if plan_mode == "device":
+        return pack_voxel_batch(vb), None
+    return vb, build_unet_plan(vb.coords, int(vb.num), list(caps), with_windows=False)
+
+
+def batch_on_device(batch, plan, dev: torch.device, caps: Sequence[int]
+                    ) -> tuple[SparseTensor, torch.Tensor, dict]:
+    """(st, labels, plan) on `dev` of what `make_batch` returned: the wire
+    unpacked (float16 features made float32) and its plan built on `dev`
+    (`build_unet_plan_device`), or the float32 batch and its host plan
+    moved to `dev`."""
+    if plan is None:
+        st, labels = unpack_voxel_batch(*batch, device=dev)
+        return st, labels, build_unet_plan_device(st.coords, st.num, tuple(caps),
+                                                  with_windows=False)
+    st, labels = batch_to_device(batch, dev)
+    return st, labels, plan_to_device(plan, dev)
+
+
 def main(argv: Sequence[str] | None = None):
     p = argparse.ArgumentParser("stage-2 MinkUNet semantic training")
     add_common_args(p)
@@ -119,6 +163,10 @@ def main(argv: Sequence[str] | None = None):
     p.add_argument("--num_classes", type=int, default=20)
     p.add_argument("--prefetch_workers", type=int, default=2)
     p.add_argument("--prefetch_depth", type=int, default=3)
+    p.add_argument("--plan_mode", choices=["device", "host"], default="device",
+                   help="device: ship compact float16 batches and build the pyramid plan "
+                        "on the card (sparse/device_plan.py); host: ship float32 batches "
+                        "and the plans the host builds (sparse/plan.py)")
     p.add_argument("--resume", action="store_true",
                    help="restore the model, optimizer and schedule from the latest "
                         "checkpoint and continue the iteration counter")
@@ -147,12 +195,14 @@ def main(argv: Sequence[str] | None = None):
         return scene_to_training_tuple(scene, extras, args.pseudo_root, source.names[i],
                                        args.pseudo_root is not None)
 
-    def make_batch(step, pool, augment):
-        return make_train_batch(scene_tuple, pool, step, args.seed, args.batch_size,
-                                args.capacity, args.voxel_size, augment)
+    caps = level_caps(args.capacity)
 
-    model = make_minkunet(args.model, out_channels=args.num_classes,
-                          level_caps=level_caps(args.capacity), seed=args.seed, device=dev)
+    def draw(step, pool, augment):
+        return make_batch(scene_tuple, pool, step, args.seed, args.batch_size, args.capacity,
+                          args.voxel_size, augment, args.plan_mode, caps)
+
+    model = make_minkunet(args.model, out_channels=args.num_classes, level_caps=caps,
+                          seed=args.seed, device=dev)
     n_params = sum(x.numel() for x in model.parameters())
     io.cprint(f"Network parameters: {n_params / 1e6:.2f}M")
     schedule = make_schedule(args.scheduler, args.lr, max_iter=args.max_iter)
@@ -184,14 +234,15 @@ def main(argv: Sequence[str] | None = None):
                            device=dev)
         with torch.no_grad():
             for j, vi in enumerate(val_idx):
-                st, labels = batch_to_device(make_batch(10_000_000 + j, [vi], False), dev)
-                logits = model(st, train=False)
+                st, labels, plan = batch_on_device(*draw(10_000_000 + j, [vi], False), dev,
+                                                   caps)
+                logits = model(st, train=False, plan=plan)
                 hist += confusion_matrix(logits.argmax(-1),
                                          torch.where(st.valid, labels, IGNORE_LABEL),
                                          args.num_classes)
         return miou_from_confusion(hist.cpu().numpy())[0]
 
-    prefetch = HostPrefetcher(lambda s: make_batch(s + 1, train_idx, True),
+    prefetch = HostPrefetcher(lambda s: draw(s + 1, train_idx, True),
                               depth=args.prefetch_depth, workers=args.prefetch_workers,
                               start=start_it)
     hist_acc = np.zeros((args.num_classes, args.num_classes))
@@ -202,8 +253,8 @@ def main(argv: Sequence[str] | None = None):
     it = start_it
     try:
         for it in range(start_it + 1, args.max_iter + 1):
-            st, labels = batch_to_device(next(prefetch), dev)
-            loss, hist = train_step(model, optimizer, scheduler, st, labels)
+            st, labels, plan = batch_on_device(*next(prefetch), dev, caps)
+            loss, hist = train_step(model, optimizer, scheduler, st, labels, plan=plan)
             hist_dev = hist if hist_dev is None else hist_dev + hist
             if it % 10 == 0 or it == args.max_iter:
                 hist_acc = hist_acc + hist_dev.cpu().numpy()

@@ -11,10 +11,14 @@ card: the scenes drawn and augmented, in step order, from one generator
 seeded by `seed`, as the JAX driver's single prefetch worker draws them
 (validation draws from its own, seeded by seed + 100); cropped and padded
 to the point cap, voxelised
-(`host_voxelize_plan`) and packed into the compact wire format, whose
-colours are float16 as the JAX trainer's default `--plan_mode device`
-ships them. The main thread moves the batch to the card and runs
-`train_step`: the forward with BatchNorm batch statistics, the loss, the
+(`host_voxelize_plan`) and, at the default `--plan_mode device`, packed
+into the compact wire format, whose colours are float16 as the JAX
+trainer's default ships them; the card unpacks it and builds the U-Net's
+7-level pyramid plan (`build_unet_plan_device`, no windows). With
+`--plan_mode host` the batch stays float32 and the host builds the plan
+as well (`host_voxelize_plan(level_caps=...)`); the card makes the voxel
+features from it (`host_batch_on_device`). The main thread runs
+`train_step` over the plan: the forward with BatchNorm batch statistics, the loss, the
 backward through the submanifold convs' kernels (K2 for the data gradient,
 K3 for the weight gradient), and the optimizer step; the clustering runs
 kernel K4. The proposals' jitter comes from a generator seeded by seed + 1,
@@ -29,9 +33,8 @@ generator on resume instead.
         --steps 4 --prepare_steps 2 --save_freq 2 --point_cap 4096 --voxel_cap 4096 --m 8
 
 Runs on the card unless `--device cpu`. Writes checkpoints/<exp>/pointgroup,
-which cli/stage2_test_pointgroup.py restores. Not ported: `--plan_mode
-host` (the host pyramid plans) and data parallelism (`--num_devices` > 1);
-both raise."""
+which cli/stage2_test_pointgroup.py restores. Not ported: data parallelism
+(`--num_devices` > 1 raises)."""
 
 from __future__ import annotations
 
@@ -48,10 +51,13 @@ from seggroup_tpu_torch.cli.stage1_common import (SceneSource, add_common_args, 
 from seggroup_tpu_torch.cli.stage2_pointgroup_common import (host_voxelize_plan, make_pg_batch,
                                                              scene_instance_tuple)
 from seggroup_tpu_torch.cli.stage2_test_pointgroup import make_eval_model
-from seggroup_tpu_torch.data.pg_wire import pack_pg_batch, unpack_pg_batch
+from seggroup_tpu_torch.data.pg_wire import (host_batch_on_device, pack_pg_batch,
+                                             unpack_pg_batch)
 from seggroup_tpu_torch.device import PhaseClock, resolve_device
 from seggroup_tpu_torch.models.pointgroup import PointGroup, pointgroup_loss
 from seggroup_tpu_torch.solvers import ScheduledLR, make_optimizer
+from seggroup_tpu_torch.sparse.device_plan import build_unet_plan_device
+from seggroup_tpu_torch.sparse.plan import plan_to_device
 from seggroup_tpu_torch.utils.checkpoint import CheckpointManager, lenient_restore
 from seggroup_tpu_torch.utils.logging import IOStream
 from seggroup_tpu_torch.utils.prefetch import HostPrefetcher
@@ -74,7 +80,8 @@ def make_adam(model: PointGroup, schedule: Callable[[int], float]
 
 def train_step(model: PointGroup, optimizer: torch.optim.Optimizer, scheduler: ScheduledLR,
                batch: tuple, do_clustering: bool, jitter: torch.Tensor | None,
-               phase_seconds: dict | None = None) -> tuple[torch.Tensor, dict, torch.Tensor]:
+               phase_seconds: dict | None = None,
+               plan: dict | None = None) -> tuple[torch.Tensor, dict, torch.Tensor]:
     """One training step on the model's device, the single-device form of
     parallel/dp.py `build_pointgroup_dp_step` (its pmean and psum are the
     identity on one device): the `train` forward (BatchNorm batch
@@ -86,15 +93,16 @@ def train_step(model: PointGroup, optimizer: torch.optim.Optimizer, scheduler: S
     Parameters that the step does not reach (the ScoreNet's before the
     clustering starts) get a zero gradient, as jax.grad gives them, so
     that Adam counts the step for them as optax does. Returns (loss, the
-    loss's parts, proposals), all on the device. With `phase_seconds`, the
-    device is synchronised around "forward" (and inside it "unet",
-    "clustering", "scorenet"), "loss", "backward" and "optimizer", and
-    their wall seconds are added to the dict."""
+    loss's parts, proposals), all on the device. `plan`: the U-Net's
+    pyramid plan (the forward builds its rulebooks without one). With
+    `phase_seconds`, the device is synchronised around "forward" (and
+    inside it "unet", "clustering", "scorenet"), "loss", "backward" and
+    "optimizer", and their wall seconds are added to the dict."""
     st, p2v, coords, batch_ids, valid, labels, inst, centroid, pointnum = batch
     phase = PhaseClock(coords.device, phase_seconds)
     with phase("forward"):
         out = model(st, p2v, coords, batch_ids, valid, do_clustering=do_clustering, train=True,
-                    jitter=jitter, phase_seconds=phase_seconds)
+                    jitter=jitter, plan=plan, phase_seconds=phase_seconds)
     with phase("loss"):
         loss, aux = pointgroup_loss(out, labels, inst, centroid, pointnum, coords, valid,
                                     num_instances_cap=pointnum.shape[0],
@@ -111,24 +119,47 @@ def train_step(model: PointGroup, optimizer: torch.optim.Optimizer, scheduler: S
     return loss.detach(), {k: v.detach() for k, v in aux.items()}, out.num_proposals
 
 
+def unet_level_caps(voxel_cap: int) -> tuple[int, ...]:
+    """The 7-level U-Net's capacities (the JAX driver's level_caps)."""
+    return tuple(voxel_cap >> i for i in range(7))
+
+
 def make_train_batch(scene_tuple: Callable[[int], tuple], pool: Sequence[int],
                      rng: np.random.Generator, batch_size: int, point_cap: int, voxel_cap: int,
                      instance_cap: int, voxel_size: float, augment: bool,
-                     phase: PhaseClock | None = None) -> dict:
-    """The wire batch of `batch_size` scenes drawn from `pool` with `rng`
-    (which also draws the augmentation and the crops). `scene_tuple(i)`
-    gives scene i's (coords, colours, sem, ins). With `phase`, its two
-    halves are timed apart: "host batch" (the draw, the crops, the
-    augmentation, the instance bookkeeping) and "voxelise" (the host
-    voxelisation and the wire)."""
+                     phase: PhaseClock | None = None, plan_mode: str = "device"):
+    """The batch of `batch_size` scenes drawn from `pool` with `rng` (which
+    also draws the augmentation and the crops): with plan_mode "device" the
+    wire (a dict), with "host" (PGHostBatch, host_voxelize_plan's voxel
+    coords, num, point2voxel and 7-level plan). `scene_tuple(i)` gives
+    scene i's (coords, colours, sem, ins). With `phase`, its two halves are
+    timed apart: "host batch" (the draw, the crops, the augmentation, the
+    instance bookkeeping) and "voxelise" (the host voxelisation and the
+    wire or the plan)."""
     phase = phase or PhaseClock(torch.device("cpu"), None)
     with phase("host batch"):
         idx = rng.integers(0, len(pool), size=batch_size)
         hb = make_pg_batch([scene_tuple(int(pool[int(i)])) for i in idx], point_cap,
                            instance_cap, rng=rng, augment=augment)
     with phase("voxelise"):
-        vcoords, num, p2v = host_voxelize_plan(hb, voxel_size, voxel_cap)
-        return pack_pg_batch(hb, vcoords, num, p2v)
+        if plan_mode == "device":
+            vcoords, num, p2v = host_voxelize_plan(hb, voxel_size, voxel_cap)
+            return pack_pg_batch(hb, vcoords, num, p2v)
+        return hb, host_voxelize_plan(hb, voxel_size, voxel_cap, unet_level_caps(voxel_cap))
+
+
+def batch_on_device(raw, voxel_cap: int, dev: torch.device) -> tuple[tuple, dict]:
+    """(unpack_pg_batch's tuple, the U-Net's plan) on `dev` from what
+    make_train_batch returned: the wire unpacked and its plan built on
+    `dev`, or the host batch with its host plan moved there."""
+    if isinstance(raw, dict):
+        batch = unpack_pg_batch(raw, voxel_cap, dev)
+        st = batch[0]
+        return batch, build_unet_plan_device(st.coords, st.num, unet_level_caps(voxel_cap),
+                                             window_levels=0)
+    hb, (vcoords, num, p2v, plan) = raw
+    return (host_batch_on_device(hb, vcoords, num, p2v, voxel_cap, dev),
+            plan_to_device(plan, dev))
 
 
 def main(argv: Sequence[str] | None = None):
@@ -154,8 +185,9 @@ def main(argv: Sequence[str] | None = None):
     p.add_argument("--m", type=int, default=16)
     p.add_argument("--prefetch_depth", type=int, default=3)
     p.add_argument("--plan_mode", choices=["device", "host"], default="device",
-                   help="device: ship compact batches (the port builds the rulebooks "
-                        "inside the forward); host: the host pyramid plans (not ported)")
+                   help="device: ship compact batches and build the 7-level pyramid plan "
+                        "on the card; host: ship float32 batches and the plans the host "
+                        "builds")
     p.add_argument("--resume", action="store_true",
                    help="restore the model, optimizer and schedule from the latest "
                         "checkpoint and continue the step counter, the LR schedule and "
@@ -165,8 +197,6 @@ def main(argv: Sequence[str] | None = None):
                         "shapes that differ keep their init")
     args = p.parse_args(argv)
 
-    if args.plan_mode == "host":
-        raise NotImplementedError("--plan_mode host (the host pyramid plans) is not ported")
     if args.num_devices not in (None, 1):
         raise NotImplementedError("data parallelism waits for the port of parallel/dp.py")
     dev = resolve_device(args.device)
@@ -188,7 +218,8 @@ def main(argv: Sequence[str] | None = None):
 
     def make_batch(rng, pool, augment):
         return make_train_batch(scene_tuple, pool, rng, args.batch_size, args.point_cap,
-                                args.voxel_cap, args.instance_cap, args.voxel_size, augment)
+                                args.voxel_cap, args.instance_cap, args.voxel_size, augment,
+                                plan_mode=args.plan_mode)
 
     model = make_eval_model(args.m, args.voxel_cap, dev, seed=args.seed)
     io.cprint("Network parameters: %.2fM" % (sum(x.numel() for x in model.parameters()) / 1e6))
@@ -236,9 +267,11 @@ def main(argv: Sequence[str] | None = None):
         losses = []
         with torch.no_grad():
             for _ in range(max(1, len(val_idx) // args.batch_size)):
-                batch = unpack_pg_batch(make_batch(val_rng, val_idx, False), args.voxel_cap, dev)
+                batch, plan = batch_on_device(make_batch(val_rng, val_idx, False),
+                                              args.voxel_cap, dev)
                 st, p2v, coords, batch_ids, valid, labels, inst, centroid, pointnum = batch
-                out = model(st, p2v, coords, batch_ids, valid, do_clustering=False, train=False)
+                out = model(st, p2v, coords, batch_ids, valid, do_clustering=False, train=False,
+                            plan=plan)
                 loss, _ = pointgroup_loss(out, labels, inst, centroid, pointnum, coords, valid,
                                           num_instances_cap=args.instance_cap,
                                           with_score=False)
@@ -259,8 +292,9 @@ def main(argv: Sequence[str] | None = None):
             jitter = torch.rand(3, generator=jitter_gen).to(dev)
             clustering = it > args.prepare_steps
             raw, rng_state = next(prefetch)
-            batch = unpack_pg_batch(raw, args.voxel_cap, dev)
-            loss, aux, _ = train_step(model, optimizer, scheduler, batch, clustering, jitter)
+            batch, plan = batch_on_device(raw, args.voxel_cap, dev)
+            loss, aux, _ = train_step(model, optimizer, scheduler, batch, clustering, jitter,
+                                      plan=plan)
             if it % 10 == 0 or it == args.steps:
                 parts = "  ".join(f"{k} {float(v):.4f}" for k, v in aux.items())
                 io.cprint("step %d/%d  loss %.4f  %s  (%.2fs/it)"

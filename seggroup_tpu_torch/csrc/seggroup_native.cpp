@@ -1,0 +1,560 @@
+// Host-side native code of the port's data pipeline and plan builders: a
+// copy of seggroup_tpu/csrc/seggroup_native.cpp, the same functions with the
+// same results, bound by seggroup_tpu_torch/native.py.
+//
+// C++ counterparts of the reference's native preprocessing stack: grid
+// subsampling (reference kpconv/cpp_wrappers/cpp_subsampling/
+// grid_subsampling.cpp:4-106), fixed-radius neighbor lists (reference
+// kpconv/tf_custom_ops/neighbors.cpp over nanoflann; here a uniform grid
+// hash, O(1) per query at fixed radius), the point->voxel rulebook
+// (reference pointgroup/lib/pointgroup_ops/src/voxelize/voxelize.cpp:59-152
+// over dense_hash_map), nearest-neighbor unmapping (reference
+// seggroup/dataset/scannet/util.py:538-550), union-find connected
+// components for weak-label prep (reference util.py:252-265), and the
+// sparse U-Net pyramid plans (sparse/plan.py).
+//
+// Device compute stays in PyTorch and the CUDA kernels; these run on the
+// host, in the input pipeline. Plain C ABI for ctypes.
+
+#include <algorithm>
+#include <cstdint>
+#include <cstring>
+#include <cmath>
+#include <unordered_map>
+#include <vector>
+
+namespace {
+
+inline uint64_t cell_key(int32_t x, int32_t y, int32_t z) {
+    // 21 bits per axis, offset to keep non-negative
+    const uint64_t B = 1u << 20;
+    return ((uint64_t)(x + B) << 42) | ((uint64_t)(y + B) << 21) |
+           (uint64_t)(z + B);
+}
+
+struct GridHash {
+    std::unordered_map<uint64_t, std::vector<int32_t>> cells;
+    float cell_size;
+
+    GridHash(const float* pts, int64_t n, float cs) : cell_size(cs) {
+        cells.reserve((size_t)n);
+        for (int64_t i = 0; i < n; ++i) {
+            int32_t cx = (int32_t)std::floor(pts[3 * i] / cs);
+            int32_t cy = (int32_t)std::floor(pts[3 * i + 1] / cs);
+            int32_t cz = (int32_t)std::floor(pts[3 * i + 2] / cs);
+            cells[cell_key(cx, cy, cz)].push_back((int32_t)i);
+        }
+    }
+};
+
+}  // namespace
+
+extern "C" {
+
+// Barycenter grid subsampling. Returns number of output points.
+// out_points must hold n*3 floats; out_inverse n int32 (point -> cell id).
+int64_t grid_subsample(const float* points, int64_t n, float cell_size,
+                       float* out_points, int32_t* out_inverse) {
+    std::unordered_map<uint64_t, int32_t> id_of;
+    std::vector<double> sum;
+    std::vector<int32_t> cnt;
+    id_of.reserve((size_t)n);
+    for (int64_t i = 0; i < n; ++i) {
+        int32_t cx = (int32_t)std::floor(points[3 * i] / cell_size);
+        int32_t cy = (int32_t)std::floor(points[3 * i + 1] / cell_size);
+        int32_t cz = (int32_t)std::floor(points[3 * i + 2] / cell_size);
+        uint64_t k = cell_key(cx, cy, cz);
+        auto it = id_of.find(k);
+        int32_t id;
+        if (it == id_of.end()) {
+            id = (int32_t)(sum.size() / 3);
+            id_of.emplace(k, id);
+            sum.insert(sum.end(), {0.0, 0.0, 0.0});
+            cnt.push_back(0);
+        } else {
+            id = it->second;
+        }
+        sum[3 * id] += points[3 * i];
+        sum[3 * id + 1] += points[3 * i + 1];
+        sum[3 * id + 2] += points[3 * i + 2];
+        cnt[id] += 1;
+        out_inverse[i] = id;
+    }
+    int64_t m = (int64_t)cnt.size();
+    for (int64_t j = 0; j < m; ++j) {
+        out_points[3 * j] = (float)(sum[3 * j] / cnt[j]);
+        out_points[3 * j + 1] = (float)(sum[3 * j + 1] / cnt[j]);
+        out_points[3 * j + 2] = (float)(sum[3 * j + 2] / cnt[j]);
+    }
+    return m;
+}
+
+// Fixed-radius neighbors of queries among supports, capped at max_k.
+// out_idx: nq*max_k int32 (filled with ns where empty); out_cnt: nq int32.
+void radius_neighbors(const float* support, int64_t ns, const float* queries,
+                      int64_t nq, float radius, int32_t max_k,
+                      int32_t* out_idx, int32_t* out_cnt) {
+    GridHash grid(support, ns, radius);
+    float r2 = radius * radius;
+    for (int64_t q = 0; q < nq; ++q) {
+        const float* Q = queries + 3 * q;
+        int32_t cx = (int32_t)std::floor(Q[0] / radius);
+        int32_t cy = (int32_t)std::floor(Q[1] / radius);
+        int32_t cz = (int32_t)std::floor(Q[2] / radius);
+        int32_t cnt = 0;
+        for (int dx = -1; dx <= 1 && cnt < max_k; ++dx)
+            for (int dy = -1; dy <= 1 && cnt < max_k; ++dy)
+                for (int dz = -1; dz <= 1 && cnt < max_k; ++dz) {
+                    auto it = grid.cells.find(
+                        cell_key(cx + dx, cy + dy, cz + dz));
+                    if (it == grid.cells.end()) continue;
+                    for (int32_t i : it->second) {
+                        float ddx = support[3 * i] - Q[0];
+                        float ddy = support[3 * i + 1] - Q[1];
+                        float ddz = support[3 * i + 2] - Q[2];
+                        if (ddx * ddx + ddy * ddy + ddz * ddz <= r2) {
+                            out_idx[q * max_k + cnt] = i;
+                            if (++cnt >= max_k) break;
+                        }
+                    }
+                }
+        out_cnt[q] = cnt;
+        for (int32_t j = cnt; j < max_k; ++j) out_idx[q * max_k + j] = (int32_t)ns;
+    }
+}
+
+// Point->voxel rulebook: compacted voxel ids in first-appearance order.
+// Returns voxel count. out_voxel: n int32; out_coords: n*4 int32 (valid rows
+// = count), rows are (batch, x, y, z).
+int64_t voxelize_rulebook(const int32_t* coords, const int32_t* batch,
+                          int64_t n, int32_t* out_voxel, int32_t* out_coords) {
+    std::unordered_map<uint64_t, int32_t> id_of;
+    id_of.reserve((size_t)n);
+    int32_t next = 0;
+    for (int64_t i = 0; i < n; ++i) {
+        uint64_t k = cell_key(coords[3 * i], coords[3 * i + 1],
+                              coords[3 * i + 2]) ^
+                     ((uint64_t)batch[i] << 61);
+        auto it = id_of.find(k);
+        int32_t id;
+        if (it == id_of.end()) {
+            id = next++;
+            id_of.emplace(k, id);
+            out_coords[4 * id] = batch[i];
+            out_coords[4 * id + 1] = coords[3 * i];
+            out_coords[4 * id + 2] = coords[3 * i + 1];
+            out_coords[4 * id + 3] = coords[3 * i + 2];
+        } else {
+            id = it->second;
+        }
+        out_voxel[i] = id;
+    }
+    return next;
+}
+
+// Nearest resampled point per original vertex (grid-accelerated; expands
+// the search ring until a hit). out: nv int32.
+void nearest_neighbor_map(const float* verts, int64_t nv,
+                          const float* resampled, int64_t nr, float cell,
+                          int32_t* out) {
+    GridHash grid(resampled, nr, cell);
+    for (int64_t v = 0; v < nv; ++v) {
+        const float* Q = verts + 3 * v;
+        int32_t cx = (int32_t)std::floor(Q[0] / cell);
+        int32_t cy = (int32_t)std::floor(Q[1] / cell);
+        int32_t cz = (int32_t)std::floor(Q[2] / cell);
+        int32_t best = -1;
+        float best_d = 1e30f;
+        for (int ring = 0; ring < 64; ++ring) {
+            for (int dx = -ring; dx <= ring; ++dx)
+                for (int dy = -ring; dy <= ring; ++dy)
+                    for (int dz = -ring; dz <= ring; ++dz) {
+                        if (std::max(std::abs(dx),
+                                     std::max(std::abs(dy), std::abs(dz))) !=
+                            ring)
+                            continue;  // shell only
+                        auto it = grid.cells.find(
+                            cell_key(cx + dx, cy + dy, cz + dz));
+                        if (it == grid.cells.end()) continue;
+                        for (int32_t i : it->second) {
+                            float ddx = resampled[3 * i] - Q[0];
+                            float ddy = resampled[3 * i + 1] - Q[1];
+                            float ddz = resampled[3 * i + 2] - Q[2];
+                            float d = ddx * ddx + ddy * ddy + ddz * ddz;
+                            if (d < best_d) {
+                                best_d = d;
+                                best = i;
+                            }
+                        }
+                    }
+            // once a hit exists and the next ring cannot beat it, stop
+            if (best >= 0 &&
+                best_d <= (float)(ring) * (float)(ring)*cell * cell)
+                break;
+        }
+        out[v] = best;
+    }
+}
+
+// ---------------------------------------------------------------------------
+// Sparse-conv UNet plan builders (host side of sparse/plan.py).
+//
+// The gather-GEMM-scatter engine (sparse/conv.py) consumes per-level
+// submanifold rulebooks and stride-2 down maps; the host builds them here,
+// as spconv / MinkowskiEngine build theirs (reference pointgroup
+// voxelize.cpp:59-152 dense_hash_map; MinkowskiEngine coords manager).
+
+namespace {
+
+// Open-addressing hash table mapping packed voxel key -> row index.
+struct VoxelTable {
+    std::vector<uint64_t> keys;
+    std::vector<int32_t> rows;
+    uint64_t mask;
+    static constexpr uint64_t EMPTY = ~0ull;
+
+    explicit VoxelTable(int64_t n) {
+        uint64_t cap = 16;
+        while (cap < (uint64_t)(2 * n + 2)) cap <<= 1;
+        keys.assign(cap, EMPTY);
+        rows.assign(cap, -1);
+        mask = cap - 1;
+    }
+    static inline uint64_t hash(uint64_t k) {
+        k ^= k >> 33;
+        k *= 0xff51afd7ed558ccdull;
+        k ^= k >> 33;
+        return k;
+    }
+    inline void insert(uint64_t k, int32_t row) {
+        uint64_t h = hash(k) & mask;
+        while (keys[h] != EMPTY) h = (h + 1) & mask;
+        keys[h] = k;
+        rows[h] = row;
+    }
+    inline int32_t find(uint64_t k) const {
+        uint64_t h = hash(k) & mask;
+        while (keys[h] != EMPTY) {
+            if (keys[h] == k) return rows[h];
+            h = (h + 1) & mask;
+        }
+        return -1;
+    }
+};
+
+// Pack (b, x, y, z) with 16 bits per spatial axis (matches the assumptions of
+// sparse/hashing.py: coords non-negative, < 16384).
+inline uint64_t pack_bxyz(int32_t b, int32_t x, int32_t y, int32_t z) {
+    return ((uint64_t)(uint16_t)b << 48) | ((uint64_t)(uint16_t)x << 32) |
+           ((uint64_t)(uint16_t)y << 16) | (uint64_t)(uint16_t)z;
+}
+
+}  // namespace
+
+// Submanifold kernel-3 rulebook. coords: capacity*4 int32 (b,x,y,z), first n
+// rows valid. out_nbr: capacity*27 int32; absent neighbors (and padding rows)
+// get `capacity`. Offset order matches ops kernel_offsets(3): k = (dx+1)*9 +
+// (dy+1)*3 + (dz+1).
+//
+// Fast path: when the valid rows are lexicographically sorted by (b,x,y,z)
+// (true for every level our pipeline produces — voxelize_scene lexsorts and
+// downsample_plan emits sorted coords), each kernel offset is a MERGE JOIN of
+// two sorted key streams: the query keys (rows shifted by the offset) are
+// themselves sorted, so one forward-moving pointer resolves all n lookups
+// with purely sequential memory access. 27 linear merges beat 27n random
+// hash probes ~10x at 2^19 voxels (the probes miss cache on nearly every
+// lookup). Unsorted input falls back to the open-addressing table.
+void subm_rulebook3(const int32_t* coords, int64_t n, int64_t capacity,
+                    int32_t* out_nbr) {
+    const int32_t M = (int32_t)capacity;
+    std::vector<uint64_t> keys((size_t)n);
+    bool sorted = true;
+    for (int64_t i = 0; i < n; ++i) {
+        keys[i] = pack_bxyz(coords[4 * i], coords[4 * i + 1],
+                            coords[4 * i + 2], coords[4 * i + 3]);
+        if (i > 0 && keys[i] <= keys[i - 1]) sorted = false;
+    }
+    if (sorted) {
+        // one merge pass per (dx,dy) group resolves all three dz offsets:
+        // the query keys q-1, q, q+1 are consecutive, so after advancing the
+        // pointer to the first key >= q-1 the three candidates sit at
+        // j, j+1, j+2.  Query keys are increasing over i (adding the packed
+        // offset preserves lex order except where a field underflows —
+        // qx/qy < 0 rows are skipped; coords < 2^14 so no field overflow).
+        for (int g = 0; g < 9; ++g) {
+            const int dx = g / 3 - 1, dy = g % 3 - 1;
+            const int64_t delta =
+                ((int64_t)dx << 32) + ((int64_t)dy << 16);
+            int64_t j = 0;
+            for (int64_t i = 0; i < n; ++i) {
+                int32_t* row = out_nbr + 27 * i + 3 * g;
+                if ((dx < 0 && coords[4 * i + 1] == 0) ||
+                    (dy < 0 && coords[4 * i + 2] == 0)) {
+                    row[0] = row[1] = row[2] = M;
+                    continue;
+                }
+                const uint64_t q = keys[i] + (uint64_t)delta;  // dz = 0 key
+                const uint64_t q_lo = q == 0 ? 0 : q - 1;  // no wraparound
+                while (j < n && keys[j] < q_lo) ++j;
+                int64_t p = j;
+                bool hit_lo = p < n && keys[p] == q_lo && q != 0;
+                // dz = -1 absent when z == 0 (z-1 underflows the field; a
+                // numeric q-1 match would borrow into the y field, which no
+                // real key has — but skip it explicitly regardless)
+                row[0] = (hit_lo && coords[4 * i + 3] != 0) ? (int32_t)p : M;
+                if (hit_lo) ++p;
+                bool hit_mid = p < n && keys[p] == q;
+                row[1] = hit_mid ? (int32_t)p : M;
+                if (hit_mid) ++p;
+                row[2] = (p < n && keys[p] == q + 1) ? (int32_t)p : M;
+            }
+        }
+    } else {
+        VoxelTable table(n);
+        for (int64_t i = 0; i < n; ++i) table.insert(keys[i], (int32_t)i);
+        for (int64_t i = 0; i < n; ++i) {
+            int32_t b = coords[4 * i], x = coords[4 * i + 1],
+                    y = coords[4 * i + 2], z = coords[4 * i + 3];
+            int32_t* row = out_nbr + 27 * i;
+            int k = 0;
+            for (int dx = -1; dx <= 1; ++dx)
+                for (int dy = -1; dy <= 1; ++dy)
+                    for (int dz = -1; dz <= 1; ++dz, ++k) {
+                        int32_t qx = x + dx, qy = y + dy, qz = z + dz;
+                        if (qx < 0 || qy < 0 || qz < 0) {
+                            row[k] = M;
+                            continue;
+                        }
+                        int32_t j = table.find(pack_bxyz(b, qx, qy, qz));
+                        row[k] = j < 0 ? M : j;
+                    }
+        }
+    }
+    for (int64_t i = n; i < capacity; ++i)
+        for (int k = 0; k < 27; ++k) out_nbr[27 * i + k] = M;
+}
+
+// Windowed-gather plan (the window layout of the JAX package's Pallas fused
+// subm conv, kept so that the port's plans equal its plans bit for bit). Voxel rows must be lexicographically sorted by
+// (b,x,y,z); then for each kernel (dx,dy) offset group the neighbor row
+// indices of a tile of T consecutive query rows span a short contiguous
+// window. Emits, per (tile, group): a 16-aligned window base row, and the
+// rulebook rewritten to window-local indices (absent/out-of-window = W) in
+// the dz-BLOCK-INTERLEAVED layout the Pallas kernel consumes:
+// out_local[((t*3 + dz)*tile + i) * 9 + g]. Returns the number of entries
+// that did NOT fit a window (callers fall back to the global-gather path
+// when > 0 — never silently drop neighbors).
+int64_t subm_windows(const int32_t* rulebook, int64_t capacity, int64_t tile,
+                     int64_t window, int32_t* out_base, int32_t* out_local) {
+    int64_t n_tiles = capacity / tile;
+    int64_t overflow = 0;
+    const int32_t M = (int32_t)capacity;
+    for (int64_t t = 0; t < n_tiles; ++t) {
+        // pass 1: per-group window minima, one sequential sweep of the tile
+        int32_t lo[9];
+        for (int g = 0; g < 9; ++g) lo[g] = M;
+        for (int64_t i = t * tile; i < (t + 1) * tile; ++i) {
+            const int32_t* row = rulebook + 27 * i;
+            for (int g = 0; g < 9; ++g)
+                for (int dz = 0; dz < 3; ++dz) {
+                    int32_t v = row[3 * g + dz];
+                    if (v < lo[g]) lo[g] = v;
+                }
+        }
+        // 16-aligned (the TPU kernel's DMA row starts)
+        int32_t base[9];
+        for (int g = 0; g < 9; ++g) {
+            base[g] = (lo[g] == M) ? 0 : (lo[g] & ~15);
+            out_base[9 * t + g] = base[g];
+        }
+        // pass 2: rewrite to window-local, second sequential sweep
+        for (int64_t i = 0; i < tile; ++i) {
+            const int32_t* row = rulebook + 27 * (t * tile + i);
+            for (int g = 0; g < 9; ++g)
+                for (int dz = 0; dz < 3; ++dz) {
+                    int32_t v = row[3 * g + dz];
+                    int32_t loc = (int32_t)window;
+                    if (v < M) {
+                        int32_t d = v - base[g];
+                        if (d >= 0 && d < (int32_t)window) loc = d;
+                        else ++overflow;
+                    }
+                    out_local[((t * 3 + dz) * tile + i) * 9 + g] = loc;
+                }
+        }
+    }
+    return overflow;
+}
+
+// Stride-2 downsample plan: unique halved coords in LEXICOGRAPHIC (b,x,y,z)
+// order — identical to the device downsample_coords (lexsort-based) so the
+// host and device paths are interchangeable. Returns num_out (clamped to
+// cap_out). out_coords: cap_out*4 (zero-padded); out_row: n int32 (coarse row
+// per input, cap_out where overflow); out_delta: n int32 in {0..7}.
+int64_t downsample_plan(const int32_t* coords, int64_t n, int64_t cap_out,
+                        int32_t* out_coords, int32_t* out_row,
+                        int32_t* out_delta) {
+    std::vector<uint64_t> keys((size_t)n);
+    bool sorted = true;
+    for (int64_t i = 0; i < n; ++i) {
+        keys[i] = pack_bxyz(coords[4 * i], coords[4 * i + 1] >> 1,
+                            coords[4 * i + 2] >> 1, coords[4 * i + 3] >> 1);
+        if (i > 0 && keys[i] < keys[i - 1]) sorted = false;
+        out_delta[i] = (coords[4 * i + 1] & 1) * 4 +
+                       (coords[4 * i + 2] & 1) * 2 + (coords[4 * i + 3] & 1);
+    }
+    int64_t m_kept;
+    if (sorted) {
+        // lex-sorted fine coords stay sorted after halving (x>>1 is
+        // monotone), so unique + rank is one linear pass — no sort, no
+        // binary searches.
+        int64_t m = 0;
+        for (int64_t i = 0; i < n; ++i) {
+            if (m == 0 || keys[i] != keys[i - 1]) {
+                if (m < cap_out) {
+                    uint64_t k = keys[i];
+                    out_coords[4 * m] = (int32_t)((k >> 48) & 0xffff);
+                    out_coords[4 * m + 1] = (int32_t)((k >> 32) & 0xffff);
+                    out_coords[4 * m + 2] = (int32_t)((k >> 16) & 0xffff);
+                    out_coords[4 * m + 3] = (int32_t)(k & 0xffff);
+                }
+                ++m;
+            }
+            out_row[i] = m - 1 < cap_out ? (int32_t)(m - 1) : (int32_t)cap_out;
+        }
+        m_kept = m < cap_out ? m : cap_out;
+    } else {
+        std::vector<uint64_t> uniq(keys);
+        std::sort(uniq.begin(), uniq.end());
+        uniq.erase(std::unique(uniq.begin(), uniq.end()), uniq.end());
+        int64_t m = (int64_t)uniq.size();
+        m_kept = m < cap_out ? m : cap_out;
+        for (int64_t j = 0; j < m_kept; ++j) {
+            uint64_t k = uniq[j];
+            out_coords[4 * j] = (int32_t)((k >> 48) & 0xffff);
+            out_coords[4 * j + 1] = (int32_t)((k >> 32) & 0xffff);
+            out_coords[4 * j + 2] = (int32_t)((k >> 16) & 0xffff);
+            out_coords[4 * j + 3] = (int32_t)(k & 0xffff);
+        }
+        for (int64_t i = 0; i < n; ++i) {
+            int64_t pos = std::lower_bound(uniq.begin(), uniq.end(), keys[i]) -
+                          uniq.begin();
+            out_row[i] = pos < cap_out ? (int32_t)pos : (int32_t)cap_out;
+        }
+    }
+    for (int64_t j = m_kept; j < cap_out; ++j)
+        out_coords[4 * j] = out_coords[4 * j + 1] = out_coords[4 * j + 2] =
+            out_coords[4 * j + 3] = 0;
+    return m_kept;
+}
+
+// ---------------------------------------------------------------------------
+// Batch-assembly kernels (host side of data/voxel_dataset.py +
+// data/transforms.py: the two hot loops of make_voxel_batch in C++).
+
+// Trilinear sampling of a blurred noise grid at point locations, applied as
+// a displacement (reference elastic distortion, minkowski lib/transforms.py:
+// 203-235). Grid axis d has `dims[d]` samples at spacing `granularity`
+// starting at -granularity relative to the cloud minimum, so the grid index
+// of point p is p/granularity + 1 (always interior by construction of dims).
+// coords is modified IN PLACE: coords += magnitude * noise(coords).
+void elastic_interp(float* coords, int64_t n, const float* mins,
+                    float granularity, float magnitude, const float* noise,
+                    const int32_t* dims) {
+    const int64_t sy = (int64_t)dims[2] * 3;  // row strides of (dx,dy,dz,3)
+    const int64_t sx = (int64_t)dims[1] * sy;
+    const float inv_g = 1.0f / granularity;
+    for (int64_t i = 0; i < n; ++i) {
+        float f[3], w[3];
+        int64_t i0[3];
+        for (int d = 0; d < 3; ++d) {
+            f[d] = (coords[3 * i + d] - mins[d]) * inv_g + 1.0f;
+            if (f[d] < 0.0f) f[d] = 0.0f;
+            float fl = std::floor(f[d]);
+            i0[d] = (int64_t)fl;
+            if (i0[d] > dims[d] - 2) i0[d] = dims[d] - 2;
+            w[d] = f[d] - (float)i0[d];
+        }
+        const float* base = noise + i0[0] * sx + i0[1] * sy + i0[2] * 3;
+        float wx1 = w[0], wx0 = 1.0f - wx1;
+        float wy1 = w[1], wy0 = 1.0f - wy1;
+        float wz1 = w[2], wz0 = 1.0f - wz1;
+        for (int c = 0; c < 3; ++c) {
+            float v000 = base[c], v001 = base[3 + c];
+            float v010 = base[sy + c], v011 = base[sy + 3 + c];
+            float v100 = base[sx + c], v101 = base[sx + 3 + c];
+            float v110 = base[sx + sy + c], v111 = base[sx + sy + 3 + c];
+            float v = wx0 * (wy0 * (wz0 * v000 + wz1 * v001) +
+                             wy1 * (wz0 * v010 + wz1 * v011)) +
+                      wx1 * (wy0 * (wz0 * v100 + wz1 * v101) +
+                             wy1 * (wz0 * v110 + wz1 * v111));
+            coords[3 * i + c] += magnitude * v;
+        }
+    }
+}
+
+// Fused voxelize for one scene: floor-quantize at voxel_size, shift to
+// non-negative, dedup into lexicographically sorted voxels with the
+// FIRST-point (minimum index) representative per voxel (ME.sparse_quantize
+// behaviour, reference lib/voxelizer.py:133). Replaces the numpy
+// floor/min/unique/lexsort/scatter chain in voxelize_scene. Returns m.
+// out_ic: n*3 (valid m rows, sorted); out_first: n (valid m); out_p2v: n.
+int64_t voxelize_sorted(const float* pts, int64_t n, float voxel_size,
+                        int32_t* out_ic, int32_t* out_first,
+                        int32_t* out_p2v) {
+    // true division (not reciprocal-multiply): bit-matches numpy's
+    // float32 `coords / voxel_size` on cell-boundary points
+    std::vector<int32_t> ic((size_t)n * 3);
+    int32_t mn[3] = {INT32_MAX, INT32_MAX, INT32_MAX};
+    for (int64_t i = 0; i < n; ++i)
+        for (int d = 0; d < 3; ++d) {
+            int32_t v = (int32_t)std::floor(pts[3 * i + d] / voxel_size);
+            ic[3 * i + d] = v;
+            if (v < mn[d]) mn[d] = v;
+        }
+    // (key, index) pairs sorted ascending: first element of each key run is
+    // the minimum original index = the scene's first point in that voxel
+    std::vector<std::pair<uint64_t, int32_t>> kv((size_t)n);
+    for (int64_t i = 0; i < n; ++i)
+        kv[i] = {pack_bxyz(0, ic[3 * i] - mn[0], ic[3 * i + 1] - mn[1],
+                           ic[3 * i + 2] - mn[2]),
+                 (int32_t)i};
+    std::sort(kv.begin(), kv.end());
+    int64_t m = -1;
+    uint64_t prev = ~0ull;
+    for (int64_t s = 0; s < n; ++s) {
+        if (s == 0 || kv[s].first != prev) {
+            ++m;
+            prev = kv[s].first;
+            out_ic[3 * m] = (int32_t)((prev >> 32) & 0xffff);
+            out_ic[3 * m + 1] = (int32_t)((prev >> 16) & 0xffff);
+            out_ic[3 * m + 2] = (int32_t)(prev & 0xffff);
+            out_first[m] = kv[s].second;
+        }
+        out_p2v[kv[s].second] = (int32_t)m;
+    }
+    return m + 1;
+}
+
+// Union-find connected components over an edge list. labels: n int32 (min
+// member index per component).
+void connected_components_uf(const int32_t* edges, int64_t ne, int64_t n,
+                             int32_t* labels) {
+    std::vector<int32_t> parent(n);
+    for (int64_t i = 0; i < n; ++i) parent[i] = (int32_t)i;
+    auto find = [&](int32_t a) {
+        while (parent[a] != a) {
+            parent[a] = parent[parent[a]];
+            a = parent[a];
+        }
+        return a;
+    };
+    for (int64_t e = 0; e < ne; ++e) {
+        int32_t ra = find(edges[2 * e]);
+        int32_t rb = find(edges[2 * e + 1]);
+        if (ra != rb) parent[ra < rb ? rb : ra] = ra < rb ? ra : rb;
+    }
+    for (int64_t i = 0; i < n; ++i) labels[i] = find((int32_t)i);
+}
+
+}  // extern "C"

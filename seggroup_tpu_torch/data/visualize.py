@@ -1,10 +1,15 @@
-"""Label colours (seggroup_tpu/data/visualize.py:17-60, copied: numpy
-only): the NYU40 palette, the instance palette and `colorize_labels`. The
-mesh recolouring of that module is not ported here."""
+"""Label colours and mesh recolouring (seggroup_tpu/data/visualize.py,
+copied: numpy only): the NYU40 palette, the instance palette,
+`colorize_labels`, and the PLY writers of the reference's label views
+(seggroup/dataset/scannet/util.py:431-527, pointgroup/util/visualize.py):
+`visualize_labels`, `colorize_grouping`, `visualize_grouping_process`,
+`write_point_cloud`."""
 
 from __future__ import annotations
 
 import numpy as np
+
+from seggroup_tpu_torch.data.ply import read_ply, write_ply
 
 # nyu40 color palette (index 0 = unlabeled; same table the reference uses,
 # dataset/scannet/util.py:24-66 — the standard ScanNet colors)
@@ -52,3 +57,73 @@ def colorize_labels(labels: np.ndarray, label_type: str = "semantic",
     colors = pal[np.maximum(labels, 0) % 64]
     colors[labels < 0] = 255
     return colors
+
+
+def visualize_labels(mesh_path: str, labels: np.ndarray, out_path: str,
+                     label_type: str = "semantic", shuffle: bool = False):
+    """Recolor a ScanNet mesh PLY by per-vertex labels and write `out_path`
+    (reference visualize_labels, util.py:431-486)."""
+    ply = read_ply(mesh_path)
+    v = ply["vertex"]
+    colors = colorize_labels(labels, label_type, shuffle)
+    write_ply(out_path, {
+        "x": v["x"], "y": v["y"], "z": v["z"],
+        "red": colors[:, 0], "green": colors[:, 1], "blue": colors[:, 2],
+    }, faces=ply.get("face"))
+
+
+def colorize_grouping(ins_labels: np.ndarray, seg_labels: np.ndarray,
+                      shuffle: bool = True, seed: int = 0) -> np.ndarray:
+    """Merge-progress coloring (reference visualize_grouping_process,
+    dataset/scannet/util.py:489-527): vertices already absorbed into an
+    instance (ins != -1) take that instance's color; still-ungrouped
+    vertices take their over-segment's color. Across layers, the mesh
+    visibly 'fills in' with instance colors as merges progress."""
+    ins_labels = np.asarray(ins_labels)
+    seg_labels = np.asarray(seg_labels)
+    ins_ids = np.unique(ins_labels)
+    ins_ids = ins_ids[ins_ids >= 0]
+    rank = np.full(int(ins_ids.max()) + 2 if len(ins_ids) else 1, 0,
+                   np.int64)
+    for r, iid in enumerate(ins_ids):
+        rank[iid] = r
+    ins_pal = _instance_palette(max(len(ins_ids), 1), shuffle=False)
+    seg_pal = _instance_palette(64, shuffle=shuffle, seed=seed)
+    colors = seg_pal[np.maximum(seg_labels, 0) % 64]
+    grouped = ins_labels >= 0
+    colors[grouped] = ins_pal[rank[ins_labels[grouped]] % len(ins_pal)]
+    colors[(~grouped) & (seg_labels < 0)] = 255
+    return colors
+
+
+def visualize_grouping_process(mesh_path: str, ins_labels: np.ndarray,
+                               seg_labels: np.ndarray, out_path: str,
+                               shuffle: bool = True, seed: int = 0):
+    """Recolor a mesh by grouping progress and write `out_path` (reference
+    visualize_grouping_process, util.py:489-527)."""
+    ply = read_ply(mesh_path)
+    v = ply["vertex"]
+    colors = colorize_grouping(ins_labels, seg_labels, shuffle, seed)
+    write_ply(out_path, {
+        "x": v["x"], "y": v["y"], "z": v["z"],
+        "red": colors[:, 0], "green": colors[:, 1], "blue": colors[:, 2],
+    }, faces=ply.get("face"))
+
+
+def write_point_cloud(out_path: str, points: np.ndarray,
+                      labels: np.ndarray | None = None,
+                      label_type: str = "semantic"):
+    """Write an (N, 3/6) point cloud as PLY, optionally colored by labels
+    (pointgroup/util/visualize.py analog)."""
+    if labels is not None:
+        colors = colorize_labels(labels, label_type)
+    elif points.shape[1] >= 6:
+        colors = ((points[:, 3:6] + 1) * 127.5).astype(np.uint8)
+    else:
+        colors = np.full((len(points), 3), 160, np.uint8)
+    write_ply(out_path, {
+        "x": points[:, 0].astype(np.float32),
+        "y": points[:, 1].astype(np.float32),
+        "z": points[:, 2].astype(np.float32),
+        "red": colors[:, 0], "green": colors[:, 1], "blue": colors[:, 2],
+    })

@@ -25,8 +25,13 @@ the 27-cube on 3-D coords). The ST variants are built for ndim 4.
 With `train=True` BatchNorm normalises by the batch statistics of the valid
 voxels and updates its running statistics; with `train=False` it runs on
 the running statistics. The forward records the autograd graph unless the
-caller turns it off (`torch.no_grad()`, as the inference drivers do). Not
-ported: host plans (`plan=`, the window plans of sparse/plan.py)."""
+caller turns it off (`torch.no_grad()`, as the inference drivers do).
+
+`MinkUNet` takes a pyramid plan (`plan=`, sparse/plan.py on the host or
+sparse/device_plan.py on the card, 3-D coords): the levels' rulebooks and
+down maps come from it instead of being built, and the logits are those
+of `plan=None`. Its window layouts, where it has them, select nothing on
+the port (sparse/conv.py) and are not read."""
 
 from __future__ import annotations
 
@@ -40,7 +45,8 @@ from torch import nn
 from seggroup_tpu_torch.device import PhaseClock, resolve_device
 from seggroup_tpu_torch.ops.segment_ops import segment_sum
 from seggroup_tpu_torch.sparse.conv import (build_subm_rulebook, inverse_conv_up,
-                                            rulebook_volume, strided_conv_down, subm_conv)
+                                            rulebook_volume, strided_conv_down,
+                                            strided_conv_down_planned, subm_conv)
 from seggroup_tpu_torch.sparse.tensor import SparseTensor
 
 INIT_DIM = 32  # the stem's width (Res16UNetBase INIT_DIM)
@@ -193,8 +199,10 @@ class BasicBlock(nn.Module):
 
     def forward(self, st: SparseTensor, rulebook, train: bool, phase) -> SparseTensor:
         identity = st.feats
-        h = F.relu(_apply_norm(self, "norm1", self.conv1(st, rulebook, phase), st, train))
-        h = _apply_norm(self, "norm2", self.conv2(st.with_feats(h), rulebook, phase), st, train)
+        h = F.relu(_apply_norm(self, "norm1", self.conv1(st, rulebook, phase), st,
+                               train))
+        h = _apply_norm(self, "norm2", self.conv2(st.with_feats(h), rulebook, phase),
+                        st, train)
         if hasattr(self, "downsample"):
             identity = _apply_norm(self, "downsample_norm", self.downsample(identity), st, train)
         return st.with_feats(F.relu(h + identity))
@@ -291,24 +299,35 @@ class _SparseUNet(nn.Module):
             raise ValueError(f"the model is built for {self.ndim + 1}-column coords, got "
                              f"{st.coords.shape[1]} columns")
 
-    def _stem_rulebooks(self, st, phase):
-        """(the stem's rulebook, level 0's blocks' rulebook)."""
+    def _stem_rulebooks(self, st, phase, rb_level0=None):
+        """(the stem's rulebook, level 0's blocks' rulebook); a given
+        `rb_level0` (a plan's) is not built again."""
         with phase("rulebooks"):
             rb0 = build_subm_rulebook(st, self.conv1_kernel_size,
                                       conv_type="spatial_hypercube")
+            if rb_level0 is not None:
+                return rb0, rb_level0
             if self.stem_matches_blocks:
                 return rb0, rb0
             return rb0, build_subm_rulebook(st, 3, conv_type=self.block_conv_type)
 
-    def _down(self, st, name, cap, train, phase, norm: bool = True):
+    def _down(self, st, name, cap, train, phase, norm: bool = True, plan=None,
+              lvl: int = 0):
         """The strided conv `{name}_kernel`, then (with `norm`) the norm
         `bn{n}` and ReLU, and the new level's rulebook: (SparseTensor,
-        indice key, rulebook)."""
+        indice key, rulebook). With `plan`, the down map and the rulebook
+        of level `lvl` + 1 are the plan's."""
+        w = getattr(self, f"{name}_kernel")
         with phase("rulebooks"):
-            st_dn, key = strided_conv_down(st, getattr(self, f"{name}_kernel"), cap)
+            if plan is None:
+                st_dn, key = strided_conv_down(st, w, cap)
+            else:
+                st_dn, key = strided_conv_down_planned(st, w, plan["down"][lvl])
         if norm:
             st_dn = st_dn.with_feats(F.relu(_apply_norm(self, f"bn{name[4]}", st_dn.feats,
                                                         st_dn, train)))
+        if plan is not None:
+            return st_dn, key, plan["rulebooks"][lvl + 1]
         with phase("rulebooks"):
             rb = build_subm_rulebook(st_dn, 3, conv_type=self.block_conv_type)
         return st_dn, key, rb
@@ -369,18 +388,24 @@ class MinkUNet(_SparseUNet):
         self._init_weights(seed, dev)
 
     def forward(self, st: SparseTensor, train: bool = False,
-                phase_seconds: dict | None = None) -> torch.Tensor:
+                phase_seconds: dict | None = None, plan: dict | None = None) -> torch.Tensor:
         """(M, out_channels) logits, zero on invalid rows; `train` selects
-        BatchNorm's batch statistics. With `phase_seconds`, the card is
-        synchronised around the rulebook and downsampling builds
-        ("rulebooks") and the submanifold convs ("subm_conv"), and their wall
-        seconds are added to the dict."""
+        BatchNorm's batch statistics. `plan`, a 5-level pyramid plan of the
+        batch's coords (sparse/plan.py, sparse/device_plan.py), replaces
+        every rulebook and down-map build (the stem's too where its kernel
+        is 3). With
+        `phase_seconds`, the card is synchronised around the rulebook and
+        downsampling builds ("rulebooks") and the submanifold convs
+        ("subm_conv"), and their wall seconds are added to the dict."""
         self._check_coords(st)
         phase = PhaseClock(st.coords.device, phase_seconds)
         cap = st.capacity
         caps = self.level_caps or [cap, cap // 2, cap // 4, cap // 8, cap // 8]
-
-        rb0, rb_level0 = self._stem_rulebooks(st, phase)
+        if plan is not None and self.conv1_kernel_size == 3:
+            rb0 = rb_level0 = plan["rulebooks"][0]
+        else:
+            rb0, rb_level0 = self._stem_rulebooks(
+                st, phase, None if plan is None else plan["rulebooks"][0])
         h = _apply_norm(self, "bn0", self.conv0(st, rb0, phase), st, train)
         out_p1 = st.with_feats(F.relu(h))
 
@@ -389,7 +414,8 @@ class MinkUNet(_SparseUNet):
         rbs, skips, keys = [rb_level0], [], []
         cur = out_p1
         for lvl in range(4):
-            st_dn, key, rb = self._down(cur, f"conv{lvl + 1}s2", caps[lvl + 1], train, phase)
+            st_dn, key, rb = self._down(cur, f"conv{lvl + 1}s2", caps[lvl + 1], train, phase,
+                                        plan=plan, lvl=lvl)
             keys.append(key)
             rbs.append(rb)
             cur = self._blocks(st_dn, f"block{lvl + 1}", self.layers[lvl], rb, train, phase)

@@ -1,8 +1,7 @@
 """PointGroup instance segmentation (seggroup_tpu/models/pointgroup.py):
 the model, its score targets and its loss.
 
-The same forward as the flax `PointGroup` without a host plan, in both of
-its modes:
+The same forward as the flax `PointGroup`, in both of its modes:
 
   * a 7-level sparse U-Net ([m..7m], pre-activation ResidualBlocks,
     kernel-2 stride-2 down and inverse up convs) over the voxels, its
@@ -32,9 +31,17 @@ tensor of 3 uniforms, drawn by the caller): JAX's draw cannot be
 reproduced. `pg_score_targets` and `pointgroup_loss` are the JAX
 functions' counterparts.
 
-Not ported: host plans (`plan=`) and the split-program mode
-(`proposals_only`, `score_plan`), which needs the ScoreNet's device plan
-(sparse/device_plan.py)."""
+`plan=`, a 7-level pyramid plan of the voxels (sparse/plan.py on the host,
+sparse/device_plan.py on the card), gives the U-Net its rulebooks and down
+maps, each inner UBlock the plan's tails (its window layouts, where it has
+them, select nothing on the port and are not read). The
+split-program mode divides a step where no gradient crosses it, at the
+clustering: `proposals_only=True` returns the outputs with zero scores and
+the ScoreNet's context (its voxelisation and a device plan of it), and
+`score_plan=(proposal_of_point, proposal_valid, num_proposals, context)`
+runs the ScoreNet on those proposals instead of clustering; `propose`
+runs the first program without touching the running statistics, as the
+JAX side drops its first program's."""
 
 from __future__ import annotations
 
@@ -56,7 +63,8 @@ from seggroup_tpu_torch.ops.segment_ops import (segment_max, segment_max_sorted,
                                                 segment_mean_sorted, segment_min)
 from seggroup_tpu_torch.ops.voxelize import VoxelMap, voxelize
 from seggroup_tpu_torch.sparse.conv import (build_subm_rulebook, inverse_conv_up,
-                                            strided_conv_down)
+                                            strided_conv_down, strided_conv_down_planned)
+from seggroup_tpu_torch.sparse.device_plan import build_unet_plan_device
 from seggroup_tpu_torch.sparse.tensor import SparseTensor
 
 IGNORE = -100
@@ -126,17 +134,29 @@ class UBlock(nn.Module):
                 setattr(self, f"tail{i}",
                         ResidualBlock(2 * planes[0] if i == 0 else planes[0], planes[0]))
 
-    def forward(self, st: SparseTensor, train: bool, phase) -> SparseTensor:
-        with phase("rulebooks"):
-            rb = build_subm_rulebook(st, 3, xy_bits=self.key_xy_bits)
+    def forward(self, st: SparseTensor, train: bool, phase,
+                plan: dict | None = None) -> SparseTensor:
+        """`plan`: a pyramid plan whose first level is this UBlock's; the
+        inner UBlock takes its tails (every list without its first entry)."""
+        if plan is not None:
+            rb = plan["rulebooks"][0]
+        else:
+            with phase("rulebooks"):
+                rb = build_subm_rulebook(st, 3, xy_bits=self.key_xy_bits)
         for i in range(self.block_reps):
             st = getattr(self, f"block{i}")(st, rb, train, phase)
         if self.deeper:
             cap_down = self.level_caps[1] if self.level_caps else st.capacity >> 1
             h = F.relu(self.conv_bn(st.feats, st.valid, train))
             with phase("rulebooks"):
-                st_dn, key = strided_conv_down(st.with_feats(h), self.conv_kernel, cap_down)
-            st_dn = self.u(st_dn, train, phase)
+                if plan is not None:
+                    st_dn, key = strided_conv_down_planned(st.with_feats(h), self.conv_kernel,
+                                                           plan["down"][0])
+                else:
+                    st_dn, key = strided_conv_down(st.with_feats(h), self.conv_kernel,
+                                                   cap_down)
+            sub_plan = None if plan is None else {k: v[1:] for k, v in plan.items()}
+            st_dn = self.u(st_dn, train, phase, sub_plan)
             h = F.relu(self.deconv_bn(st_dn.feats, st_dn.valid, train))
             st_up = inverse_conv_up(st_dn.with_feats(h), self.deconv_kernel, key)
             st = st.with_feats(torch.cat([st.feats, st_up.feats], dim=-1))
@@ -212,15 +232,20 @@ class PointGroup(nn.Module):
     # --- stage 1: backbone and heads --------------------------------------
 
     def backbone(self, voxels: SparseTensor, p2v: torch.Tensor, point_valid: torch.Tensor,
-                 train: bool = False, phase_seconds: dict | None = None):
-        """The U-Net over the voxels, voxel -> point, and the two heads.
+                 train: bool = False, phase_seconds: dict | None = None,
+                 plan: dict | None = None):
+        """The U-Net over the voxels (its rulebooks and down maps from
+        `plan` where given), voxel -> point, and the two heads.
         Returns (point_feats (N, m), semantic_scores (N, classes),
         pt_offsets (N, 3)), zero on invalid points."""
         phase = PhaseClock(voxels.coords.device, phase_seconds)
-        with phase("rulebooks"):
-            rb0 = build_subm_rulebook(voxels, 3)
+        if plan is not None:
+            rb0 = plan["rulebooks"][0]
+        else:
+            with phase("rulebooks"):
+                rb0 = build_subm_rulebook(voxels, 3)
         st = voxels.with_feats(self.input_conv(voxels, rb0, phase))
-        st = self.unet(st, train, phase)
+        st = self.unet(st, train, phase, plan)
         h = F.relu(self.output_bn(st.feats, st.valid, train))
 
         feats_pad = torch.cat([h, h.new_zeros((1, h.shape[1]))])
@@ -324,13 +349,21 @@ class PointGroup(nn.Module):
 
     # --- stage 3: ScoreNet --------------------------------------------------
 
+    def score_plan_of(self, score_vox: VoxelMap) -> dict:
+        """The ScoreNet's 2-level plan of a proposal voxelisation, built on
+        its device (key packing (5, 5), no windows)."""
+        return build_unet_plan_device(score_vox.voxel_coords, score_vox.num_voxels,
+                                      (self.score_cap, self.score_cap // 2),
+                                      with_windows=False, xy_bits=(5, 5))
+
     def score(self, point_feats: torch.Tensor, proposal_of_point: torch.Tensor,
               score_vox: VoxelMap, train: bool = False,
-              phase_seconds: dict | None = None) -> torch.Tensor:
+              phase_seconds: dict | None = None, plan: dict | None = None) -> torch.Tensor:
         """(P,) proposal scores (pre-sigmoid): the proposals' voxels take the
-        mean of their points' features, pass the 2-level U-Net, and each
-        proposal takes the max over its points (its gradient to the
-        earliest point among equal maxima)."""
+        mean of their points' features, pass the 2-level U-Net (over
+        `plan`, the ScoreNet's plan, where given), and each proposal takes
+        the max over its points (its gradient to the earliest point among
+        equal maxima)."""
         phase = PhaseClock(point_feats.device, phase_seconds)
         p_total = 2 * self.max_proposals_per_source
         flat_prop = proposal_of_point.reshape(-1)
@@ -340,7 +373,7 @@ class PointGroup(nn.Module):
                                        score_vox.point2voxel, self.score_cap)
         st = SparseTensor(score_vox.voxel_coords, sv_feats, score_vox.voxel_valid,
                           score_vox.num_voxels)
-        st = self.score_unet(st, train, phase)
+        st = self.score_unet(st, train, phase, plan)
         hs = F.relu(self.score_bn(st.feats, st.valid, train))
         hs_pad = torch.cat([hs, hs.new_zeros((1, hs.shape[1]))])
         flat_score_feats = hs_pad[torch.clamp(score_vox.point2voxel, max=self.score_cap).long()]
@@ -352,25 +385,32 @@ class PointGroup(nn.Module):
                 batch_ids: torch.Tensor, point_valid: torch.Tensor,
                 do_clustering: bool = False, train: bool = False,
                 jitter: torch.Tensor | None = None,
-                plan=None, proposals_only: bool = False, score_plan=None,
-                phase_seconds: dict | None = None) -> PGOutput:
+                plan: dict | None = None, proposals_only: bool = False,
+                score_plan: tuple | None = None, phase_seconds: dict | None = None):
         """voxels: the scene's SparseTensor; p2v (N,) point -> voxel row;
         coords (N, 3) metric; batch_ids, point_valid (N,). Without
         `do_clustering` only the heads run and there are no proposals.
         `train` uses and moves the BatchNorm statistics. `jitter`, the
         proposals' shift inside their grids: a (3,) tensor of uniforms in
         [0, 1); none without it, as the reference without `jitter_rng`.
+        `plan`: the U-Net's 7-level pyramid plan (module docstring).
+
+        Split-program mode (with `do_clustering`): `proposals_only` returns
+        (PGOutput with zero scores, {"vox": the proposals' VoxelMap,
+        "unet_plan": the ScoreNet's plan of it}); `score_plan`, the tuple
+        (proposal_of_point, proposal_valid, num_proposals, that dict), skips
+        the clustering and scores those proposals. Both see the same
+        weights, so the proposals are the fused forward's, and so are the
+        loss and its gradients (no gradient crosses the clustering).
+
         With `phase_seconds`, the card is synchronised around the stages
         ("unet", "clustering", "scorenet") and inside them around the
         rulebook builds and the submanifold convs, and their wall seconds
         are added to the dict."""
-        if plan is not None or proposals_only or score_plan is not None:
-            raise NotImplementedError("host plans and the split-program mode "
-                                      "(plan=, proposals_only, score_plan) are not ported")
         phase = PhaseClock(coords.device, phase_seconds)
         with phase("unet"):
             point_feats, semantic_scores, pt_offsets = self.backbone(
-                voxels, p2v, point_valid, train, phase_seconds)
+                voxels, p2v, point_valid, train, phase_seconds, plan)
         n = coords.shape[0]
         p_total = 2 * self.max_proposals_per_source
         dev = coords.device
@@ -379,14 +419,45 @@ class PointGroup(nn.Module):
                             torch.full((2, n), p_total, dtype=torch.int32, device=dev),
                             torch.zeros(p_total, dtype=torch.bool, device=dev),
                             torch.zeros((), dtype=torch.int32, device=dev))
+        if score_plan is not None:
+            proposal_of_point, proposal_valid, num_proposals, ctx = score_plan
+            with phase("scorenet"):
+                scores = self.score(point_feats, proposal_of_point, ctx["vox"], train,
+                                    phase_seconds, ctx.get("unet_plan"))
+            return PGOutput(semantic_scores, pt_offsets, scores, proposal_of_point,
+                            proposal_valid, num_proposals)
         with phase("clustering"):
             props = self.cluster(semantic_scores, pt_offsets, coords, batch_ids, point_valid,
                                  jitter)
+        if proposals_only:
+            with phase("clustering"), torch.no_grad():
+                ctx = {"vox": props.score_vox, "unet_plan": self.score_plan_of(props.score_vox)}
+            return PGOutput(semantic_scores, pt_offsets, torch.zeros(p_total, device=dev),
+                            props.proposal_of_point, props.proposal_valid,
+                            props.num_proposals), ctx
         with phase("scorenet"):
             scores = self.score(point_feats, props.proposal_of_point, props.score_vox, train,
                                 phase_seconds)
         return PGOutput(semantic_scores, pt_offsets, scores, props.proposal_of_point,
                         props.proposal_valid, props.num_proposals)
+
+
+@torch.no_grad()
+def propose(model: PointGroup, voxels: SparseTensor, p2v: torch.Tensor, coords: torch.Tensor,
+            batch_ids: torch.Tensor, point_valid: torch.Tensor, train: bool = True,
+            jitter: torch.Tensor | None = None, plan: dict | None = None):
+    """The first program of a split step: the forward with the clustering
+    (`proposals_only`), no autograd, and the BatchNorm running statistics
+    put back as they were (the JAX side drops the first program's), so that
+    the second program, `model(..., score_plan=...)`, moves them once, as
+    the fused step does. Returns (PGOutput with zero scores, the
+    `score_plan` tuple)."""
+    stats = {k: v.clone() for k, v in model.named_buffers()}
+    out, ctx = model(voxels, p2v, coords, batch_ids, point_valid, do_clustering=True,
+                     train=train, jitter=jitter, plan=plan, proposals_only=True)
+    for k, v in model.named_buffers():
+        v.copy_(stats[k])
+    return out, (out.proposal_of_point, out.proposal_valid, out.num_proposals, ctx)
 
 
 # --- losses (seggroup_tpu/models/pointgroup.py:404-488) ----------------------

@@ -22,8 +22,27 @@
 offsets path over `region_offsets(conv_type, k, 4)`, and the stride-2 maps
 carry t through unchanged. `global_pool` is the per-scene mean or max.
 
-Not ported here: the windowed Pallas plans (`windows=`, sparse/plan.py,
-device_plan.py) and the merge-join rulebook path (`assume_sorted=True`)."""
+Pyramid plans (sparse/plan.py on the host, sparse/device_plan.py on the
+card) feed the rest: `build_subm_rulebook(assume_sorted=True)` takes rows
+already in lexicographic order and skips the sort;
+`strided_conv_down_planned` takes a precomputed down map;
+`subm_conv(windows=...)` accepts a plan's window layout.
+
+Where the JAX side joins sorted rows by its windowed merge join
+(sparse/merge_join.py), the port runs the lower-bound search it runs for
+any order, over the identity order. The join finds the same rulebook with
+three searches over all keys for nine groups of queries, where the search
+takes one for eight, and its overflow flag would cost a host sync a level.
+`sparse/merge_join.windowed_join3` ports the join's own outputs; no path
+of the port calls it.
+
+The window layout is the JAX package's: there it routes `subm_conv` to its
+Pallas kernels, which gather rows through contiguous windows because
+random row gathers are slow on the TPU. The port's kernels K2 and K3 gather
+straight from the rulebook (csrc/subm_conv.cu), so on the card, as on the
+CPU, the windows select nothing: `subm_conv` computes the same function
+with or without them. `windows_to_rulebook` decodes a window layout, for
+the tests that hold a plan's windows against its rulebooks."""
 
 from __future__ import annotations
 
@@ -99,23 +118,33 @@ def build_subm_rulebook(st: SparseTensor, kernel_size: int = 3,
     offsets), other cube kernels the generic per-offset lookup; 5-column
     coords and the cross regions the per-offset lookup over
     `region_offsets(conv_type, kernel_size, 4)` (29 offsets for the hybrid
-    region, 81 for the hypercube)."""
-    if assume_sorted:
-        raise NotImplementedError("the assume_sorted (merge-join) path is not ported")
+    region, 81 for the hypercube).
+
+    assume_sorted: the rows are already in lexicographic (batch, x, y, z)
+    order with the valid prefix first (the host voxelizer's and the down
+    maps' contract), so kernel 3 skips the sort: the searched path over
+    the identity order, the rulebook the JAX side's merge join gives."""
     ndim = st.coords.shape[1] - 1
     if ndim == 3 and kernel_size == 3 and conv_type in _CUBE_TYPES:
-        return _build_subm_rulebook_k3(st, xy_bits)
+        return _build_subm_rulebook_k3(st, assume_sorted, xy_bits)
     if ndim == 3 and conv_type in _CUBE_TYPES:
         return build_subm_rulebook_offsets(st, kernel_offsets(kernel_size))
     return build_subm_rulebook_offsets(st, region_offsets(conv_type, kernel_size, ndim))
 
 
-def _build_subm_rulebook_k3(st: SparseTensor, xy_bits=(14, 14)) -> torch.Tensor:
+def _build_subm_rulebook_k3(st: SparseTensor, assume_sorted: bool = False,
+                            xy_bits=(14, 14)) -> torch.Tensor:
     m = st.capacity
     dev = st.coords.device
     hi, lo = pack_keys(st.coords, xy_bits)
-    order, hi_s, lo_s = sort_coords(st.coords, st.valid, xy_bits)
-    rank = invert_permutation(order)
+    if assume_sorted:
+        order = torch.arange(m, dtype=torch.int32, device=dev)
+        rank = order
+        hi_s = torch.where(st.valid, hi, INT32_MAX)
+        lo_s = torch.where(st.valid, lo, INT32_MAX)
+    else:
+        order, hi_s, lo_s = sort_coords(st.coords, st.valid, xy_bits)
+        rank = invert_permutation(order)
     big = torch.full((1,), INT32_MAX, dtype=torch.int32, device=dev)
     order_pad = torch.cat([order, torch.full((1,), m, dtype=torch.int32, device=dev)])
     hi_pad = torch.cat([hi_s, big])
@@ -280,6 +309,34 @@ class SubmConvFunction(torch.autograd.Function):
         return dfeats, dw, None, None
 
 
+# the window layout of the JAX package's Pallas kernels
+# (seggroup_tpu/sparse/pallas_conv.py TILE, WINDOW): a plan's windows are
+# compared with the JAX plans' bit for bit
+TILE = 256
+WINDOW = 512
+
+
+def takes_windows(capacity: int) -> bool:
+    """Whether a level of this capacity carries a window plan (the JAX
+    side's windowed branch): capacity a multiple of TILE, at least 8 tiles."""
+    return capacity % TILE == 0 and capacity >= 8 * TILE
+
+
+def windows_to_rulebook(rb_win: torch.Tensor, win_base: torch.Tensor, tile: int = TILE,
+                        window: int = WINDOW) -> torch.Tensor:
+    """The (M, 27) rulebook a window layout encodes (M = rb_win rows / 3):
+    row t*tile + i, offset 3g + dz reads win_base[t, g] + rb_win[(t*3 + dz)
+    * tile + i, g], absent (M) where that local index is `window`. It equals
+    the plan's rulebook where the plan's `use_window` is true (an entry that
+    did not fit its window is also `window`)."""
+    m = rb_win.shape[0] // 3
+    n_tiles = m // tile
+    local = rb_win.reshape(n_tiles, 3, tile, 9).permute(0, 2, 3, 1)  # (t, i, g, dz)
+    rows = win_base.reshape(n_tiles, 1, 9, 1) + local
+    rb = torch.where(local == window, m, rows)
+    return rb.reshape(m, 27).to(torch.int32)
+
+
 def subm_conv(st: SparseTensor, weights: torch.Tensor, rulebook: torch.Tensor,
               compute_dtype: torch.dtype = torch.bfloat16,
               windows: dict | None = None) -> torch.Tensor:
@@ -288,9 +345,13 @@ def subm_conv(st: SparseTensor, weights: torch.Tensor, rulebook: torch.Tensor,
     Differentiable in the features and the weights (`SubmConvFunction`).
 
     On the card the kernels K2 and K3 take bf16 operands only; on the CPU
-    the plain versions run at `compute_dtype`."""
-    if windows is not None:
-        raise NotImplementedError("window plans (sparse/plan.py) are not ported")
+    the plain versions run at `compute_dtype`. `windows`, a plan's
+    {"rb_win", "win_base", "use_window"} for this level, is accepted and
+    selects nothing: K2 and K3 read the rulebook itself (module
+    docstring)."""
+    if windows is not None and set(windows) != {"rb_win", "win_base", "use_window"}:
+        raise ValueError(f"a window plan holds rb_win, win_base and use_window, got "
+                         f"{sorted(windows)}")
     if weights.shape[0] % 2 != 1:
         raise ValueError("subm_conv needs an odd (symmetric) kernel")
     feats = torch.where(st.valid[:, None], st.feats, 0.0)
@@ -333,6 +394,12 @@ def strided_conv_down(st: SparseTensor, weights: torch.Tensor, cap_out: int,
     """Kernel-2 stride-2 sparse conv; weights (8, Cin, Cout). Also returns
     the `indice_key` dict the matching inverse conv needs."""
     coords_out, valid_out, num_out, out_row, delta = downsample_coords(st, cap_out)
+    return _strided_apply(st, weights, cap_out, coords_out, valid_out, num_out, out_row,
+                          delta, compute_dtype)
+
+
+def _strided_apply(st, weights, cap_out, coords_out, valid_out, num_out, out_row, delta,
+                   compute_dtype):
     feats = torch.where(st.valid[:, None], st.feats, 0.0).to(compute_dtype)
     w = weights.to(compute_dtype)
     # contrib[i] = feats[i] @ W[delta_i], one masked matmul per kernel index
@@ -345,6 +412,19 @@ def strided_conv_down(st: SparseTensor, weights: torch.Tensor, cap_out: int,
     key = {"out_row": out_row, "delta": delta, "fine_coords": st.coords,
            "fine_valid": st.valid, "fine_num": st.num}
     return SparseTensor(coords_out, out, valid_out, num_out), key
+
+
+def strided_conv_down_planned(st: SparseTensor, weights: torch.Tensor, down_plan: dict,
+                              compute_dtype: torch.dtype = torch.float32
+                              ) -> tuple[SparseTensor, dict]:
+    """strided_conv_down with a precomputed down map (a plan's
+    {"coords", "num", "out_row", "delta"}): no sort or compaction."""
+    coords_out = down_plan["coords"]
+    num_out = down_plan["num"]
+    cap_out = coords_out.shape[0]
+    valid_out = torch.arange(cap_out, device=coords_out.device) < num_out
+    return _strided_apply(st, weights, cap_out, coords_out, valid_out, num_out,
+                          down_plan["out_row"], down_plan["delta"], compute_dtype)
 
 
 def inverse_conv_up(st_coarse: SparseTensor, weights: torch.Tensor, indice_key: dict,

@@ -88,6 +88,7 @@ def shared():
               torch.from_numpy(batch_ids), torch.from_numpy(valid))
     return dict(variables=variables, full=jax.tree.map(np.array, full),
                 vox=jax.tree.map(np.array, ctx["vox"]),
+                score_unet_plan=jax.tree.map(np.array, ctx["unet_plan"]),
                 heads=jax.tree.map(np.array, heads), port=port, args=t_args, valid=valid)
 
 
@@ -208,13 +209,53 @@ def test_no_clustering_matches_flax(shared):
         np.testing.assert_array_equal(got.numpy(), ref, err_msg=name)
 
 
-@pytest.mark.parametrize("kwargs", [dict(plan={}), dict(proposals_only=True),
-                                    dict(score_plan=())])
+@pytest.mark.parametrize("kwargs", [dict(plan=True), dict(proposals_only=True),
+                                    dict(score_plan=True)])
 def test_training_arguments_raise(shared, kwargs):
-    """Host plans and the split-program mode, which needs the ScoreNet's
-    device plan (sparse/device_plan.py), are not ported."""
-    with pytest.raises(NotImplementedError):
-        shared["port"](*shared["args"], do_clustering=True, **kwargs)
+    """The arguments the port once refused, held against the reference:
+    `plan=` (a 7-level host plan, windows on 3 levels) gives the plan-less
+    forward bit for bit; `proposals_only` gives the reference's first
+    program: its proposals, zero scores, and its ScoreNet context (the
+    VoxelMap and the ScoreNet's device plan) exactly; `score_plan` scores
+    the reference's proposals within the heads' tolerance of its fused
+    scores, and equal to the port's fused ones."""
+    from seggroup_tpu_torch.sparse.plan import build_unet_plan, plan_to_device
+
+    port, args, want = shared["port"], shared["args"], shared["full"]
+    with torch.no_grad():
+        fused = port(*args, do_clustering=True)
+        if "plan" in kwargs:
+            vox = args[0]
+            plan = build_unet_plan(vox.coords.numpy(), int(vox.num),
+                                   [vox.capacity >> i for i in range(7)], window_levels=3)
+            assert plan["windows"][0] is not None
+            out = port(*args, do_clustering=True, plan=plan_to_device(plan, "cpu"))
+            for name in PGOutput._fields:
+                np.testing.assert_array_equal(getattr(out, name).numpy(),
+                                              getattr(fused, name).numpy(), err_msg=name)
+            np.testing.assert_allclose(out.scores.numpy(), want.scores, atol=ATOL, rtol=RTOL)
+        elif "proposals_only" in kwargs:
+            out, ctx = port(*args, do_clustering=True, proposals_only=True)
+            for name in ("proposal_of_point", "proposal_valid", "num_proposals"):
+                np.testing.assert_array_equal(getattr(out, name).numpy(), getattr(want, name))
+            assert (out.scores == 0).all()
+            for got, ref, name in zip(ctx["vox"], shared["vox"], VoxelMap._fields):
+                np.testing.assert_array_equal(got.numpy(), ref, err_msg=name)
+            ref_plan = shared["score_unet_plan"]
+            assert "windows" not in ctx["unet_plan"] and "windows" not in ref_plan
+            for a, b in zip(ctx["unet_plan"]["rulebooks"], ref_plan["rulebooks"]):
+                np.testing.assert_array_equal(a.numpy(), b)
+            for a, b in zip(ctx["unet_plan"]["down"], ref_plan["down"]):
+                for k in ("coords", "num", "out_row", "delta"):
+                    np.testing.assert_array_equal(a[k].numpy(), b[k], err_msg=k)
+        else:
+            vox = VoxelMap(*(torch.from_numpy(np.array(x)) for x in shared["vox"]))
+            ctx = {"vox": vox, "unet_plan": port.score_plan_of(vox)}
+            out = port(*args, do_clustering=True, score_plan=(
+                torch.from_numpy(want.proposal_of_point), torch.from_numpy(want.proposal_valid),
+                torch.tensor(int(want.num_proposals)), ctx))
+            np.testing.assert_allclose(out.scores.numpy(), want.scores, atol=ATOL, rtol=RTOL)
+            np.testing.assert_array_equal(out.scores.numpy(), fused.scores.numpy())
 
 
 def test_seeded_init_has_flax_scales():

@@ -245,6 +245,52 @@ def test_loss_and_gradients_match_jax(shared, clustering):
         assert _rel(g.numpy(), grads[k].numpy()) <= 1e-4, k
 
 
+def test_split_program_and_plan_match_fused_and_jax(shared):
+    """The split-program step over a 7-level host plan (windows on its first
+    3 levels) at float32 convs: the first program (`propose`) gives the
+    fused forward's proposals and leaves the running statistics as they
+    were; the second (`score_plan=`) gives the fused step's loss, every
+    gradient and the running statistics bit for bit, and so holds to JAX's
+    fused step within this file's bounds (JAX's own tests hold its split
+    program's gradients bit-identical to its fused step's)."""
+    from seggroup_tpu_torch.sparse.plan import build_unet_plan, plan_to_device
+
+    want = shared[True]
+    st, p2v, coords, batch_ids, valid = shared["batch"][:5]
+    jitter = torch.from_numpy(shared["jitter"].copy())
+    plan = plan_to_device(build_unet_plan(st.coords.numpy(), int(st.num),
+                                          [st.capacity >> i for i in range(7)],
+                                          window_levels=3), "cpu")
+    fused, split = _port(shared), _port(shared)
+    with f32_convs():
+        f_out = _forward(fused, shared, True)
+        f_loss, _ = _loss(f_out, shared, True)
+        f_loss.backward()
+        before = {k: v.clone() for k, v in split.named_buffers()}
+        out_a, score_plan = TP.propose(split, st, p2v, coords, batch_ids, valid, train=True,
+                                       jitter=jitter, plan=plan)
+        for k, v in split.named_buffers():
+            assert torch.equal(v, before[k]), k
+        out = split(st, p2v, coords, batch_ids, valid, do_clustering=True, train=True,
+                    plan=plan, score_plan=score_plan)
+        loss, _ = _loss(out, shared, True)
+        loss.backward()
+    for name in ("proposal_of_point", "proposal_valid", "num_proposals"):
+        np.testing.assert_array_equal(getattr(out_a, name).numpy(), getattr(f_out, name).numpy())
+        np.testing.assert_array_equal(getattr(out, name).numpy(),
+                                      getattr(want["out"], name))
+    assert int(out.num_proposals) >= 10 and (out_a.scores == 0).all()
+    assert float(loss) == float(f_loss)
+    assert abs(float(loss) - float(want["loss"])) <= 1e-5 * abs(float(want["loss"]))
+    grads = _flax_sd(want["grads"])
+    for (k, p), (_, q) in zip(split.named_parameters(), fused.named_parameters()):
+        assert torch.equal(p.grad, q.grad), k
+        if k != ZERO_GRAD:
+            assert _rel(p.grad.numpy(), grads[k].numpy()) <= 1e-4, k
+    for (k, b), (_, c) in zip(split.named_buffers(), fused.named_buffers()):
+        assert torch.equal(b, c), k
+
+
 @pytest.mark.parametrize("clustering", MODES)
 def test_train_step_and_adam_match_optax(shared, clustering):
     want = shared[clustering]

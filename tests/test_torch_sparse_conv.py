@@ -99,9 +99,23 @@ def test_rulebook_wide_batch_ids_narrow_keys():
 
 
 def test_rulebook_paths_not_ported_raise(sites):
-    _, ts = sites
-    with pytest.raises(NotImplementedError):
-        T.build_subm_rulebook(ts, 3, assume_sorted=True)
+    """The assume_sorted path (once refused) on the sites in lexicographic
+    order: equal to JAX's assume_sorted rulebook and to the searched one,
+    at 512 rows (the searched branch) and at 4,096 (the merge join)."""
+    js, _ = sites
+    order = np.lexsort(np.asarray(js.coords).T[::-1])
+    valid = np.asarray(js.valid)[order]
+    order = np.concatenate([order[valid], order[~valid]])  # the valid prefix first
+    for cap in (512, 4096):
+        coords = np.zeros((cap, 4), np.int32)
+        coords[:512] = np.asarray(js.coords)[order]
+        coords[512:] = 0
+        valid = np.arange(cap) < int(js.num)
+        j, t = pair(coords, valid, np.zeros((cap, 1), np.float32))
+        want = np.asarray(jax.jit(lambda s: J.build_subm_rulebook(s, 3, assume_sorted=True))(j))
+        got = T.build_subm_rulebook(t, 3, assume_sorted=True)
+        np.testing.assert_array_equal(got.numpy(), want)
+        np.testing.assert_array_equal(got.numpy(), T.build_subm_rulebook(t, 3).numpy())
 
 
 @pytest.mark.parametrize("cap_out", [256, 200, 64])  # 64 and 200 bind: num_out is 223
@@ -149,11 +163,51 @@ def test_subm_conv_equals_jax(cin, cout, m_cap, n, dtypes):
 
 
 def test_subm_conv_refuses_window_plans(sites):
-    _, ts = sites
-    w = torch.zeros(27, 5, 4)
-    rb = torch.full((512, 27), 512, dtype=torch.int32)
-    with pytest.raises(NotImplementedError):
-        T.subm_conv(ts, w, rb, windows={"rb_win": None})
+    """A window plan (once refused) selects nothing: subm_conv with a
+    level's windows equals it without them and JAX's plain branch
+    (use_window false), forward and both gradients, at float32; a dict
+    that is not a window plan is refused."""
+    from seggroup_tpu_torch.sparse.device_plan import build_windows_device
+
+    rng = np.random.default_rng(11)
+    m, cin, cout = 2048, 6, 5
+    coords = np.zeros((m, 4), np.int32)
+    keys = np.sort(rng.choice(2 * 16 ** 3, size=1900, replace=False))
+    coords[:1900] = np.stack([keys // 4096, keys // 256 % 16, keys // 16 % 16, keys % 16], 1)
+    valid = np.arange(m) < 1900
+    feats = rng.normal(size=(m, cin)).astype(np.float32)
+    w = (rng.normal(size=(27, cin, cout)) * 0.2).astype(np.float32)
+    dout = rng.normal(size=(m, cout)).astype(np.float32)
+    js, ts = pair(coords, valid, feats)
+    rb = T.build_subm_rulebook(ts, 3)
+    win = build_windows_device(rb)
+    assert bool(win["use_window"])
+
+    def port(windows):
+        f = ts.feats.clone().requires_grad_(True)
+        wt = torch.from_numpy(w).requires_grad_(True)
+        out = T.subm_conv(ts.with_feats(f), wt, rb, compute_dtype=torch.float32,
+                          windows=windows)
+        (out * torch.from_numpy(dout)).sum().backward()
+        return out.detach().numpy(), f.grad.numpy(), wt.grad.numpy()
+
+    jwin = {"rb_win": jnp.asarray(win["rb_win"].numpy()),
+            "win_base": jnp.asarray(win["win_base"].numpy()), "use_window": jnp.asarray(False)}
+
+    def jloss(wj, f):
+        out = J.subm_conv(js.with_feats(f), wj, jnp.asarray(rb.numpy()),
+                          compute_dtype=jnp.float32, windows=jwin)
+        return jnp.sum(out * dout), out
+
+    (_, jout), (jgw, jgf) = jax.jit(jax.value_and_grad(jloss, argnums=(0, 1), has_aux=True))(
+        jnp.asarray(w), js.feats)
+    with_w, without = port(win), port(None)
+    for a, b in zip(with_w, without):
+        np.testing.assert_array_equal(a, b)
+    for a, b in zip(with_w, (jout, jgf, jgw)):
+        np.testing.assert_allclose(a, np.asarray(b), rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError, match="window plan"):
+        T.subm_conv(ts, torch.from_numpy(w), rb, windows={"rb_win": None})
 
 
 def test_strided_down_and_inverse_up_equal_jax(sites):

@@ -283,7 +283,7 @@ def _consumed_batches(monkeypatch, tmp_path, args):
         seen.append(batch)
         return TW.unpack_pg_batch(batch, voxel_cap, dev)
 
-    def no_step(model, optimizer, scheduler, batch, clustering, jitter):
+    def no_step(model, optimizer, scheduler, batch, clustering, jitter, plan=None):
         scheduler.step()
         return torch.zeros(()), {}, torch.zeros((), dtype=torch.int32)
 
@@ -354,13 +354,47 @@ def test_resume_refuses_a_checkpoint_without_the_batch_generator(tmp_path, monke
 
 
 def test_step_schedule_and_refusals(tmp_path, monkeypatch):
-    """The JAX driver's schedule (step decay, floor 1e-6); `--plan_mode
-    host` and data parallelism raise instead of running."""
+    """The JAX driver's schedule (step decay, floor 1e-6); data parallelism
+    raises instead of running; `--plan_mode host` (once refused) runs 2
+    steps, the second with the clustering, and validates."""
     sched = driver.step_schedule(1e-3, 0.5, 10)
     assert [sched(s) for s in (0, 9, 10, 25)] == [1e-3, 1e-3, 5e-4, 2.5e-4]
     assert driver.step_schedule(1e-3, 0.1, 1)(20) == 1e-6
-    monkeypatch.chdir(tmp_path)
-    for extra in (["--plan_mode", "host"], ["--num_devices", "2"]):
-        with pytest.raises(NotImplementedError):
-            driver.main([*TRAIN, "--steps", "1", *extra])
-    assert not (tmp_path / "checkpoints").exists()
+    (tmp_path / "refused").mkdir()
+    monkeypatch.chdir(tmp_path / "refused")
+    with pytest.raises(NotImplementedError):
+        driver.main([*TRAIN, "--steps", "1", "--num_devices", "2"])
+    assert not (tmp_path / "refused" / "checkpoints").exists()
+    (tmp_path / "host").mkdir()
+    monkeypatch.chdir(tmp_path / "host")
+    it, best = driver.main([*SMALL, "--batch_size", "2", "--prepare_steps", "1", "--steps", "2",
+                            "--save_freq", "2", "--plan_mode", "host"])
+    assert it == 2 and np.isfinite(best)
+    log = (tmp_path / "host" / "checkpoints" / "exp" / "pointgroup.log").read_text()
+    assert "step 2/2" in log and "score_loss" in log and "val loss" in log
+
+
+@pytest.mark.parametrize("window_levels", [0, 3])
+def test_host_voxelize_plan_with_level_caps_matches_jax(window_levels):
+    """With level_caps the fourth element is the 7-level host plan, bit-equal
+    to the JAX package's (rulebooks, down maps, windows)."""
+    hb_j, hb_t = _host_batch(JC), _host_batch(TC)
+    caps = [4096 >> i for i in range(7)]
+    want = JC.host_voxelize_plan(hb_j, 0.02, 4096, level_caps=caps, window_levels=window_levels)
+    got = TC.host_voxelize_plan(hb_t, 0.02, 4096, level_caps=caps, window_levels=window_levels)
+    for x, y in zip(got[:3], want[:3]):
+        np.testing.assert_array_equal(x, y)
+    plan, ref = got[3], want[3]
+    for a, b in zip(plan["rulebooks"], ref["rulebooks"]):
+        np.testing.assert_array_equal(a, b)
+    for a, b in zip(plan["down"], ref["down"]):
+        assert int(a["num"]) == int(b["num"])
+        for k in ("coords", "out_row", "delta"):
+            np.testing.assert_array_equal(a[k], b[k])
+    assert [w is None for w in plan["windows"]] == [w is None for w in ref["windows"]]
+    assert sum(w is not None for w in plan["windows"]) == (2 if window_levels else 0)  # 4096, 2048
+    for a, b in zip(plan["windows"], ref["windows"]):
+        if a is not None:
+            assert bool(a["use_window"]) == bool(b["use_window"])
+            np.testing.assert_array_equal(a["rb_win"], b["rb_win"])
+            np.testing.assert_array_equal(a["win_base"], b["win_base"])

@@ -43,6 +43,11 @@ def test_import_leaves_jax_out():
         "import seggroup_tpu_torch.cli.introspect_kpconv\n"
         "import seggroup_tpu_torch.cli.demo_semantic, seggroup_tpu_torch.data.visualize\n"
         "import seggroup_tpu_torch.models.resnet_sparse, seggroup_tpu_torch.models.crf\n"
+        "import seggroup_tpu_torch.native, seggroup_tpu_torch.sparse.merge_join\n"
+        "import seggroup_tpu_torch.sparse.plan, seggroup_tpu_torch.sparse.device_plan\n"
+        "import seggroup_tpu_torch.data.mesh, seggroup_tpu_torch.cli.prepare_scannet\n"
+        "import seggroup_tpu_torch.cli.visualize, seggroup_tpu_torch.cli.plot_convergence\n"
+        "import seggroup_tpu_torch.utils.profiling\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert not bad, bad\n"
     )
