@@ -163,8 +163,25 @@ Phases, in order; any failure exits non-zero:
      synthetic raw ScanNet scene of 50,000 vertices prepared by
      cli.prepare_scannet at its defaults and cli.stage1_infer --ins_infer
      over it on the card (label files at the vertex count, K1 counted);
- 16. each phase's wall seconds, a `kernels` JSON line, the card line, then
-     the device line as the last.
+ 15e. data parallelism (parallel/dp.py, parallel/point_sharding.py): an
+     NCCL group of world size 1 in this process and one MinkUNet DP step
+     through it (Res16UNet34C, --plan_mode device, 2^17 voxels, batch 8);
+     then one spawn of 2 gloo ranks sharing cuda:0 (NCCL refuses two ranks
+     on one card), each running the stage-1 DP train step at the bench
+     width (bf16, Adam), the same MinkUNet DP step, a PointGroup DP step
+     with the clustering on label heads in each --plan_mode (rank 0 draws
+     both ranks' batches and hands them out) and the stage-1 point-sharded
+     forward at the bench width, whose final_sem, final_ins and final_root
+     must equal the unsharded forward's; after each, every rank's
+     parameters and running statistics bit-equal; with deterministic
+     algorithms on, a Res16UNet14A DP step against the mean of the two
+     ranks' own gradients fed through a copy of the optimizer; s/step,
+     peak memory and K1-K4 launches per rank of each path (two ranks on
+     one card contend: not a scaling figure). With 2 or more cards, the
+     same over NCCL across min(count, 4) cards;
+ 16. each phase's wall seconds, a `kernels` JSON line (each kernel's
+     `launches_by_path` with every rank's launches on each DP path), the
+     card line, then the device line as the last.
 
 Needs one card. Imports nothing of JAX or of the JAX package."""
 
@@ -2632,9 +2649,12 @@ def run_kpconv_train_path(torch, dev, card, work):
     try:
         t0 = time.perf_counter()
         with _bench_scene_source():
+            # one rank in this process, whatever the cards (the bench scenes
+            # are swapped in here, and the kernels counted here)
             _, launches = _count_launches(torch, TR.main, ["--synthetic", str(KPT_SCENES),
                                                           "--steps", str(KPT_STEPS),
-                                                          "--save_freq", str(KPT_STEPS)])
+                                                          "--save_freq", str(KPT_STEPS),
+                                                          "--num_devices", "1"])
         wall = time.perf_counter() - t0
         log = open(os.path.join("checkpoints", "exp", "kpconv.log")).read()
     finally:
@@ -3502,7 +3522,7 @@ def run_raw_scene_path(torch, dev, card, work):
         t0 = time.perf_counter()
         _, launches = _count_launches(torch, stage1_infer.main, [
             "--data_root", prepared, "--label_style", "maxseg", "--ins_infer",
-            "--exp_name", "raw"])
+            "--exp_name", "raw", "--num_devices", "1"])
         infer_s = time.perf_counter() - t0
     finally:
         os.chdir(cwd)
@@ -3518,6 +3538,337 @@ def run_raw_scene_path(torch, dev, card, work):
           f"{launches['masked_fps']} launches (K2 {launches['subm_conv']}, K3 "
           f"{launches['subm_dw']}, K4 {launches['cc_sweep']}); on {card}", flush=True)
     return dict(launches, prep_s=prep_s, infer_s=infer_s)
+
+
+# ---------------------------------------------------------------------------
+# phase 15e: data parallelism (parallel/dp.py, parallel/point_sharding.py)
+# ---------------------------------------------------------------------------
+
+# each DP path's steps a rank: the first warms up, the rest are timed and
+# counted
+DP_STEPS = 2
+DP_TIMEOUT_S = 300
+# the 2-rank step against the mean of the two ranks' own gradients fed
+# through the same optimizer, with deterministic algorithms on, at the
+# bounds the card-vs-CPU train steps hold (S1_GRAD_RTOL, S1_STAT_TOL):
+# each parameter's change within 1e-4 of its largest, the running
+# statistics within 1e-5; Res16UNet14A at 2^14 rows
+DP_MEAN_ROWS, DP_MEAN_SITES = 2 ** 14, 12000
+
+
+def _dp_same_on_ranks(torch, mesh, model, what):
+    """Raises unless every rank holds rank 0's parameters and running
+    statistics bit for bit."""
+    import torch.distributed as dist
+
+    flat = torch.cat([t.detach().reshape(-1) for t in model.state_dict().values()
+                      if t.is_floating_point()])
+    ref = flat.clone()
+    dist.broadcast(ref, 0, group=mesh.group)
+    same = torch.tensor([int(torch.equal(flat, ref))], device=flat.device)
+    dist.all_reduce(same, op=dist.ReduceOp.MIN, group=mesh.group)
+    if not int(same):
+        raise AssertionError(f"{what}: the ranks' parameters or statistics differ")
+
+
+def _dp_timed(torch, mesh, step, batches):
+    """step(batch) over `batches`: the first warms up, the rest are timed
+    with every kernel's launches counted. Returns (s/step, launches, peak
+    GiB of this rank, the steps' returns)."""
+    outs = [step(batches[0])]
+    torch.cuda.synchronize(mesh.device)
+    torch.cuda.reset_peak_memory_stats(mesh.device)
+    mods = _kernel_counts()
+    for mod in mods.values():
+        mod.launches = 0
+    t0 = time.perf_counter()
+    for b in batches[1:]:
+        outs.append(step(b))
+    torch.cuda.synchronize(mesh.device)
+    wall = (time.perf_counter() - t0) / (len(batches) - 1)
+    return (wall, {name: mod.launches for name, mod in mods.items()},
+            torch.cuda.max_memory_allocated(mesh.device) / 2 ** 30, outs)
+
+
+def _dp_minkunet(torch, mesh):
+    """The MinkUNet trainer's default DP step (build_minkunet_dp_step_packed:
+    Res16UNet34C, the float16 wire, the plan built on the rank, 2^17
+    voxels, batch 8 of the bench scenes, SGD 0.1 PolyLR); rank d's batch of
+    step s is the driver's make_batch(s * ranks + d + 1)."""
+    from seggroup_tpu_torch.cli.stage2_common import scene_to_training_tuple
+    from seggroup_tpu_torch.cli.stage2_test_semantic import level_caps
+    from seggroup_tpu_torch.cli.stage2_train_minkunet import make_batch
+    from seggroup_tpu_torch.data.synthetic import BENCH_SCENE, make_synthetic_scene
+    from seggroup_tpu_torch.parallel.dp import build_minkunet_dp_step_packed
+
+    caps = level_caps(CAPACITY)
+    scenes = [scene_to_training_tuple(make_synthetic_scene(seed=i, **BENCH_SCENE), {}, None,
+                                      "", False) for i in range(TRAIN_POOL)]
+    wires = [make_batch(scenes.__getitem__, range(TRAIN_POOL), s * mesh.size + mesh.rank + 1,
+                        1, TRAIN_BATCH, CAPACITY, VOXEL, True, "device", caps)[0]
+             for s in range(DP_STEPS)]
+    model, optimizer, scheduler = _train_setup(torch, mesh.device, "Res16UNet34C", caps, 0)
+    mesh.replicate(model, optimizer)
+    step = build_minkunet_dp_step_packed(model, optimizer, scheduler, mesh, caps)
+    wall, launches, peak, outs = _dp_timed(torch, mesh, step, wires)
+    _dp_same_on_ranks(torch, mesh, model, "MinkUNet DP step")
+    loss = [float(x) / mesh.size for x, _ in outs]
+    if not np.isfinite(loss).all() or int(outs[-1][1].sum()) == 0:
+        raise AssertionError(f"MinkUNet DP step: loss {loss}, confusion empty")
+    del model, optimizer
+    torch.cuda.empty_cache()
+    return dict(launches, s_per_step=wall, peak_gib=peak, loss=loss)
+
+
+def _dp_stage1(torch, mesh):
+    """The stage-1 DP train step at the bench width (150,528 points, bf16,
+    Adam lr 0.001), rank d on bench scene d, its dropout from its own
+    generator."""
+    from seggroup_tpu_torch.data.synthetic import BENCH_SCENE, make_synthetic_scene
+    from seggroup_tpu_torch.models.seggroup import SegGroupGNN
+    from seggroup_tpu_torch.parallel.dp import build_stage1_train_step, rank_seed
+    from seggroup_tpu_torch.solvers import make_optimizer, make_schedule
+
+    scene = make_synthetic_scene(seed=mesh.rank, **BENCH_SCENE).to(mesh.device)
+    model = SegGroupGNN(cluster_cap=1024, knn_window=8192, seed=0, device=mesh.device)
+    optimizer, _ = make_optimizer("Adam", model.parameters(), make_schedule("constant", S1_LR))
+    mesh.replicate(model, optimizer)
+    gen = torch.Generator(device=mesh.device).manual_seed(rank_seed(3, mesh.rank))
+    step = build_stage1_train_step(model, optimizer, mesh)
+    wall, launches, peak, outs = _dp_timed(
+        torch, mesh, lambda sc: step(sc, generator=gen), [scene] * DP_STEPS)
+    _dp_same_on_ranks(torch, mesh, model, "stage-1 DP step")
+    loss = [float(x) / mesh.size for x, _ in outs]
+    if not np.isfinite(loss).all() or launches["masked_fps"] < DP_STEPS - 1:
+        raise AssertionError(f"stage-1 DP step: loss {loss}, K1 {launches['masked_fps']}")
+    del model, optimizer
+    torch.cuda.empty_cache()
+    return dict(launches, s_per_step=wall, peak_gib=peak, loss=loss)
+
+
+def _dp_pointgroup(torch, mesh):
+    """PointGroup DP steps with the clustering at the training driver's
+    defaults, in each --plan_mode: rank 0 draws both ranks' batches (the
+    wire, or the host batch with its host plan) and hands rank d its own
+    over the host group, as the trainer does; each rank unpacks on its card
+    (building the plan there in device mode) and clusters on heads made
+    from its batch's labels (_cluster_on_labels)."""
+    from seggroup_tpu_torch.cli.stage2_train_pointgroup import batch_on_device, make_train_batch
+    from seggroup_tpu_torch.parallel.dp import build_pointgroup_dp_step, rank_seed
+
+    scenes = [_pg_scene(i)[1:] for i in range(N_SCENES)] if mesh.is_main else None
+    out = {}
+    for plan_mode in ("device", "host"):
+        def draw(s):
+            return make_train_batch(scenes.__getitem__, range(N_SCENES),
+                                    np.random.default_rng((1, s)), PGT_BATCH, PG_POINT_CAP,
+                                    PG_VOXEL_CAP, PGT_INSTANCE_CAP, VOXEL, True,
+                                    plan_mode=plan_mode)
+        raws = [mesh.scatter([draw(s * mesh.size + d) for d in range(mesh.size)]
+                             if mesh.is_main else None) for s in range(DP_STEPS)]
+        model, optimizer, scheduler = _pg_train_setup(torch, mesh.device)
+        mesh.replicate(model, optimizer)
+        inner = build_pointgroup_dp_step(model, optimizer, scheduler, mesh, do_clustering=True)
+        gen = torch.Generator().manual_seed(rank_seed(2, mesh.rank))
+
+        def step(raw):
+            batch, plan = batch_on_device(raw, PG_VOXEL_CAP, mesh.device)
+            _cluster_on_labels(torch, model, batch)
+            return inner(batch, plan, torch.rand(3, generator=gen).to(mesh.device))
+
+        wall, launches, peak, outs = _dp_timed(torch, mesh, step, raws)
+        _dp_same_on_ranks(torch, mesh, model, f"PointGroup DP step ({plan_mode} plan)")
+        loss = [float(x) / mesh.size for x in outs]
+        if not np.isfinite(loss).all() or launches["cc_sweep"] < DP_STEPS - 1:
+            raise AssertionError(f"PointGroup DP step ({plan_mode}): loss {loss}, K4 "
+                                 f"{launches['cc_sweep']}")
+        out[plan_mode] = dict(launches, s_per_step=wall, peak_gib=peak, loss=loss)
+        del model, optimizer
+        torch.cuda.empty_cache()
+    return out
+
+
+def _dp_point_sharded(torch, mesh):
+    """The stage-1 forward with its point axis sharded over the ranks
+    (point_sharding.make_point_sharded_model) at the bench width, beside
+    the unsharded forward on the same card, deterministic algorithms on:
+    final_sem, final_ins and final_root exactly equal."""
+    from seggroup_tpu_torch.data.synthetic import BENCH_SCENE, make_synthetic_scene
+    from seggroup_tpu_torch.models.seggroup import SegGroupGNN
+    from seggroup_tpu_torch.parallel.point_sharding import (build_stage1_point_sharded_forward,
+                                                            make_point_sharded_model)
+
+    scene = make_synthetic_scene(seed=0, **BENCH_SCENE).to(mesh.device)
+    sharded = make_point_sharded_model(mesh, cluster_cap=1024, knn_window=8192, seed=0)
+    fwd = build_stage1_point_sharded_forward(sharded, mesh)
+    wall, launches, peak, outs = _dp_timed(torch, mesh, fwd, [scene] * DP_STEPS)
+    plain = SegGroupGNN(cluster_cap=1024, knn_window=8192, seed=0, device=mesh.device)
+    want = plain(scene, mode="ins_infer")
+    for k in ("final_sem", "final_ins", "final_root"):
+        if not torch.equal(getattr(outs[-1], k), getattr(want, k)):
+            raise AssertionError(f"point-sharded forward: {k} differs from the unsharded one")
+    del sharded, plain
+    torch.cuda.empty_cache()
+    return dict(launches, s_per_step=wall, peak_gib=peak)
+
+
+def _dp_mean_check(torch, mesh):
+    """With deterministic algorithms on: one MinkUNet DP step (Res16UNet14A,
+    2^14 rows, SGD with momentum, from a step already taken) against each
+    rank's own gradient and moved statistics, gathered, averaged on every
+    rank in rank order and fed through a copy of the same optimizer.
+    Returns the worst change error over the parameters' largest change and
+    the worst statistics error."""
+    import copy
+
+    import torch.distributed as dist
+
+    from seggroup_tpu_torch.cli.stage2_test_semantic import level_caps
+    from seggroup_tpu_torch.cli.stage2_train_minkunet import masked_nll
+    from seggroup_tpu_torch.parallel.dp import build_minkunet_dp_step
+
+    caps = level_caps(DP_MEAN_ROWS)
+    batches = [tuple(x.to(mesh.device) for x in _small_batch(
+        torch, DP_MEAN_ROWS, DP_MEAN_SITES, 40 + 2 * s + mesh.rank)) for s in range(2)]
+    model, optimizer, scheduler = _train_setup(torch, mesh.device, "Res16UNet14A", caps, 0)
+    mesh.replicate(model, optimizer)
+    step = build_minkunet_dp_step(model, optimizer, scheduler, mesh)
+    step(*batches[0], None)  # the momentum buffers filled
+
+    ref_model = copy.deepcopy(model)
+    ref_opt = type(optimizer)(ref_model.parameters(), **optimizer.defaults)
+    # a copy: load_state_dict keeps the very tensors, which the step moves
+    ref_opt.load_state_dict(copy.deepcopy(optimizer.state_dict()))
+    for group in ref_opt.param_groups:
+        group["lr"] = optimizer.param_groups[0]["lr"]
+    st, labels = batches[1]
+    ref_model.zero_grad(set_to_none=True)
+    masked_nll(ref_model(st, train=True), labels, st.valid).backward()
+    local = torch.cat([p.grad.reshape(-1) for p in ref_model.parameters()]
+                      + [b.reshape(-1) for b in ref_model.buffers()])
+    parts = [torch.empty_like(local) for _ in range(mesh.size)]
+    dist.all_gather(parts, local, group=mesh.group)
+    mean = parts[0]
+    for part in parts[1:]:
+        mean = mean + part
+    mean = mean / mesh.size
+    i = 0
+    with torch.no_grad():
+        for p in ref_model.parameters():
+            p.grad = mean[i:i + p.numel()].view_as(p).clone()
+            i += p.numel()
+        for b in ref_model.buffers():
+            b.copy_(mean[i:i + b.numel()].view_as(b))
+            i += b.numel()
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    ref_opt.step()
+    step(st, labels, None)
+    got, want = model.state_dict(), ref_model.state_dict()
+    grad_err = stat_err = 0.0
+    for k, v in want.items():
+        if k.endswith((".mean", ".var")):
+            stat_err = max(stat_err, float((got[k] - v).abs().max()))
+            continue
+        change = (v - before[k]).abs().max()
+        grad_err = max(grad_err, float((got[k] - v).abs().max() / torch.clamp(change, 1e-12)))
+    if grad_err > S1_GRAD_RTOL or stat_err > S1_STAT_TOL:
+        raise AssertionError(f"DP step against the mean of the ranks' own gradients: "
+                             f"{grad_err:.3e} of the largest change, statistics {stat_err:.3e}")
+    return dict(grad_err=grad_err, stat_err=stat_err)
+
+
+def _dp_rank(mesh):
+    """Every DP path on one rank (parallel/dp.launch calls it in each rank's
+    process); returns what rank 0 prints."""
+    import torch
+
+    from seggroup_tpu_torch.device import resolve_device
+
+    sys.path.insert(0, ROOT)
+    resolve_device(mesh.device)
+    out = {"stage1": _dp_stage1(torch, mesh), "minkunet": _dp_minkunet(torch, mesh)}
+    pg = _dp_pointgroup(torch, mesh)
+    out.update({f"pointgroup_plan_{k}": v for k, v in pg.items()})
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        out["point_sharded"] = _dp_point_sharded(torch, mesh)
+        out["mean_check"] = _dp_mean_check(torch, mesh)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return out
+
+
+def _dp_world1(torch):
+    """An NCCL group of world size 1 on the card, in this process: one
+    MinkUNet DP step through it (and one to warm up)."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from seggroup_tpu_torch.parallel.dp import make_mesh
+
+    with tempfile.TemporaryDirectory() as store:
+        dist.init_process_group("nccl", init_method=f"file://{store}/store", world_size=1,
+                                rank=0, timeout=timedelta(seconds=DP_TIMEOUT_S))
+        try:
+            return _dp_minkunet(torch, make_mesh("cuda"))
+        finally:
+            dist.destroy_process_group()
+
+
+def _dp_line(name, transport, ranks):
+    per = "; ".join(
+        f"rank {r}: {o['s_per_step']:.4f} s/step, peak {o['peak_gib']:.2f} GiB, K1 "
+        f"{o['masked_fps']}, K2 {o['subm_conv']}, K3 {o['subm_dw']}, K4 {o['cc_sweep']}"
+        for r, o in enumerate(ranks))
+    return f"DP {name} over {transport}: {per}"
+
+
+def run_dp_paths(torch, dev, card):
+    """Phase 15e: the data-parallel steps on the card. Returns {path:
+    [launches of each rank]} for the kernels line."""
+    from datetime import timedelta
+
+    from seggroup_tpu_torch.parallel.dp import launch
+
+    world1 = _dp_world1(torch)
+    print(_dp_line("MinkUNet step (Res16UNet34C, device plan, 2^17 voxels, batch 8)",
+                   "NCCL, world 1", [world1]) + f"; on {card}", flush=True)
+    runs = {"nccl1": [world1]}
+    transports = [("gloo2", "2 gloo ranks sharing cuda:0", 2, "gloo")]
+    if torch.cuda.device_count() >= 2:
+        n = min(torch.cuda.device_count(), 4)
+        transports.append((f"nccl{n}", f"NCCL across {n} cards", n, "nccl"))
+    env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"  # cuBLAS's deterministic mode
+    try:
+        for key, transport, n, backend in transports:
+            t0 = time.perf_counter()
+            ranks = launch(_dp_rank, n, "cuda:0" if backend == "gloo" else "cuda",
+                           backend=backend,
+                           timeout=timedelta(seconds=DP_TIMEOUT_S), all_ranks=True)
+            note = (" (two ranks on one card contend for it: not a scaling figure)"
+                    if key == "gloo2" else "")
+            for path in ("stage1", "minkunet", "pointgroup_plan_device",
+                         "pointgroup_plan_host", "point_sharded"):
+                print(_dp_line(path, transport, [r[path] for r in ranks]) + note, flush=True)
+            mean = ranks[0]["mean_check"]
+            print(f"DP over {transport}: ranks bit-equal after every step; point-sharded "
+                  f"labels equal the unsharded forward's; the Res16UNet14A step against "
+                  f"the mean of the ranks' own gradients (deterministic algorithms): "
+                  f"{mean['grad_err']:.3e} of the largest change (bound {S1_GRAD_RTOL}), "
+                  f"statistics {mean['stat_err']:.3e} (bound {S1_STAT_TOL}); "
+                  f"{time.perf_counter() - t0:.1f} s with the spawn; on {card}", flush=True)
+            for path in ranks[0]:
+                if path != "mean_check":
+                    runs[f"{key}_{path}"] = [r[path] for r in ranks]
+    finally:
+        if env is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG")
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = env
+    runs["nccl1_minkunet"] = runs.pop("nccl1")
+    return runs
 
 
 def build_all() -> None:
@@ -3620,6 +3971,7 @@ def main() -> int:
     pg_plans = phase("PointGroup plans and split", run_pointgroup_plan_paths, torch, dev, card)
     with tempfile.TemporaryDirectory() as raw_work:
         raw_scene = phase("raw scene to stage 1", run_raw_scene_path, torch, dev, card, raw_work)
+    dp_runs = phase("data parallelism", run_dp_paths, torch, dev, card)
     print("wall seconds by phase: " + "; ".join(f"{k} {v:.2f}" for k, v in seconds.items())
           + f"; total {sum(seconds.values()):.2f}", flush=True)
 
@@ -3663,6 +4015,9 @@ def main() -> int:
                               "pointgroup_training_clustering": clustering["cc_sweep"]}
     for k, name in ((k1, "masked_fps"), (k2, "subm_conv"), (k3, "subm_dw"), (k4, "cc_sweep")):
         k["launches_by_path"].update({path: c[name] for path, c in counted_paths.items()})
+        # the DP paths: a list of each rank's launches in its timed steps
+        k["launches_by_path"].update({f"dp_{path}": [r[name] for r in ranks]
+                                      for path, ranks in dp_runs.items()})
     print(json.dumps({"kernels": [k1, k2, k3, k4]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

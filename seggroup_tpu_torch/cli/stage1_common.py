@@ -3,11 +3,13 @@ package): the run configuration dump, the STOP file, the common flags, the
 scene source (prepared npz or synthetic scenes) and the static-budget
 buckets of the stage-1 auto caps.
 
-The drivers run one scene at a time on one device, so the JAX side's
-batching helpers (`stack_scenes`, `batches`) have no counterpart; its
-`export_scene` is `infer.export_scene`. `--fast_knn` and
-`--parallel_grouping` reach the stage-1 model as `fast_knn=True` and
-`sequential=False`."""
+A rank runs one scene at a time, so the JAX side's `stack_scenes` has no
+counterpart: `batches` yields the scenes of a step as a list, and
+`batch_indices` the indices alone, from which rank d of a data-parallel
+run loads its own scene d. The JAX side's `export_scene` is
+`infer.export_scene`. `--fast_knn` and `--parallel_grouping` reach the
+stage-1 model as `fast_knn=True` and `sequential=False`; `--num_devices`
+starts that many ranks (parallel/dp.py `launch`)."""
 
 from __future__ import annotations
 
@@ -44,7 +46,11 @@ def add_common_args(p):
                    choices=["manual", "maxseg", "mainseg", "rand"])
     p.add_argument("--synthetic", type=int, default=0,
                    help="use N synthetic scenes instead of prepared ScanNet")
-    p.add_argument("--num_devices", type=int, default=None)
+    p.add_argument("--num_devices", type=int, default=None,
+                   help="data-parallel ranks, one process each (default: every "
+                        "visible card, 1 with --device cpu)")
+    p.add_argument("--dist_timeout", type=float, default=1800.0,
+                   help="seconds a rank waits in a collective before it fails")
     p.add_argument("--seed", type=int, default=1)
     p.add_argument("--tensorboard", action="store_true",
                    help="write tensorboard scalars next to the run log")
@@ -124,3 +130,23 @@ def group_scenes_by_cap(source, minimum: int,
         cc = pick_bucket(host_max_segment_size(sc), buckets, minimum)
         groups.setdefault(cc, []).append(i)
     return groups
+
+
+def batch_indices(order, batch: int):
+    """The JAX side's `batches` as indices: for each step, the `batch`
+    scene indices order[(i + j) % n] (the tail wraps to the start of
+    `order`, so every step is full) and how many of them are real (not
+    wrapped)."""
+    n = len(order)
+    for i in range(0, n, batch):
+        yield [int(order[(i + j) % n]) for j in range(batch)], min(batch, n - i)
+
+
+def batches(source: SceneSource, batch: int, order):
+    """Yield (names of the real scenes, scenes, extras) for each step of
+    `batch_indices`, the scenes as a list (cli/stage1_common.py `batches`
+    of the JAX package stacks them)."""
+    for idx, real in batch_indices(order, batch):
+        got = [source.get(k) for k in idx]
+        yield ([source.names[k] for k in idx[:real]], [sc for sc, _ in got],
+               [ex for _, ex in got])

@@ -12,23 +12,35 @@ Auto caps (the default): each scene runs at the smallest cluster_cap
 bucket covering its largest layer-1 segment, and a scene whose merged
 clusters outgrow knn_window is run again at the covering window bucket,
 so no budget binds. `--no-auto_caps` keeps the given budgets and warns
-where they bind. Runs on the card unless `--device cpu`."""
+where they bind. Runs on the card unless `--device cpu`.
+
+`--num_devices N` (default every visible card; 1 on the CPU) starts N
+ranks (parallel/dp.py): rank d runs scene d of each of the JAX driver's
+batches of N scenes (per cap bucket, `batch_indices`), exports it unless
+it is the wrapped tail, and runs all of its own auto-caps retries itself
+(they are not sharded again); the IoU sums are summed over the ranks at
+the end. Each scene's files are those of `--num_devices 1`, byte for
+byte. Rank 0 alone logs, its own scenes' progress and the totals."""
 
 from __future__ import annotations
 
 import argparse
 import os
 import time
+from datetime import timedelta
 from collections.abc import Sequence
 
 import numpy as np
+import torch
 
 from seggroup_tpu_torch.cli.stage1_common import (KNN_WINDOW_BUCKETS, SceneSource,
-                                                  add_common_args, dump_config,
+                                                  add_common_args, batch_indices, dump_config,
                                                   group_scenes_by_cap, pick_bucket)
 from seggroup_tpu_torch.device import resolve_device
 from seggroup_tpu_torch.infer import export_scene
 from seggroup_tpu_torch.models.seggroup import SegGroupGNN
+from seggroup_tpu_torch.parallel.dp import (Mesh, build_stage1_infer_step, launch,
+                                            resolve_num_devices)
 from seggroup_tpu_torch.utils.checkpoint import CheckpointManager
 from seggroup_tpu_torch.utils.logging import IOStream
 
@@ -56,11 +68,21 @@ def main(argv: Sequence[str] | None = None):
         p.error("pick exactly one of --sem_infer/--ins_infer")
     mode = "sem_infer" if args.sem_infer else "ins_infer"
 
-    dev = resolve_device(args.device)
-    if args.num_devices not in (None, 1):
-        raise NotImplementedError("data parallelism waits for the port of parallel/dp.py")
-    io = IOStream(os.path.join("checkpoints", args.exp_name, "infer.log"))
+    n_dev = resolve_num_devices(args.num_devices, args.device)
+    if n_dev == 1:
+        resolve_device(args.device)
     dump_config(args, "stage1_infer")
+    if n_dev > 1:
+        return launch(_infer, n_dev, args.device, args, mode,
+                      timeout=timedelta(seconds=args.dist_timeout))
+    return _infer(None, args, mode)
+
+
+def _infer(mesh: Mesh | None, args, mode: str):
+    """The inference of one rank (`mesh`), or of the only process."""
+    dev = resolve_device(args.device if mesh is None else mesh.device)
+    n_dev, rank = (1, 0) if mesh is None else (mesh.size, mesh.rank)
+    io = IOStream(os.path.join("checkpoints", args.exp_name, "infer.log"), enabled=rank == 0)
     source = SceneSource(args)
 
     def make_model(cc: int, kw: int) -> SegGroupGNN:
@@ -107,13 +129,21 @@ def main(argv: Sequence[str] | None = None):
     over_budget = 0
     retries: dict[tuple[int, int], list[int]] = {}
 
-    def process(cc: int, kw: int, order):
+    def process(cc: int, kw: int, order, shard: bool):
+        """Runs the scenes `order`: this rank's share of them where `shard`
+        (the first pass), else all of them (the rank's own retries)."""
         nonlocal done, over_budget
-        model = model_for(cc, kw)
-        for i in order:
+        if mesh is None:
+            run = model_for(cc, kw)
+        else:
+            run = build_stage1_infer_step(model_for(cc, kw), mesh, mode)
+        mine = list(order)
+        if mesh is not None and shard:
+            mine = [idx[rank] for idx, real in batch_indices(order, n_dev) if rank < real]
+        for i in mine:
             name = source.names[i]
             scene, extras = source.get(i)
-            out = model(scene.to(dev), mode=mode)
+            out = run(scene.to(dev)) if mesh is not None else run(scene.to(dev), mode=mode)
             mseg, mclu = int(out.max_segment_size), int(out.max_cluster_size)
             nkw = pick_bucket(mclu, KNN_WINDOW_BUCKETS, kw + 1)
             if args.auto_caps and mclu > kw and nkw > kw:
@@ -146,10 +176,22 @@ def main(argv: Sequence[str] | None = None):
 
     try:
         for cc in sorted(groups):
-            process(cc, args.knn_window, groups[cc])
+            process(cc, args.knn_window, groups[cc], shard=True)
         while retries:
             (cc, kw), idxs = retries.popitem()
-            process(cc, kw, idxs)
+            process(cc, kw, idxs, shard=False)
+        if mesh is not None:
+            # every rank reaches this once, whatever its retries
+            iou = torch.from_numpy(np.stack([i_sem, u_sem, i_ins, u_ins])).to(dev)
+            tot = mesh.psum({"iou": iou,
+                             "counts": torch.tensor([done, over_budget], device=dev)})
+            i_sem, u_sem, i_ins, u_ins = tot["iou"].cpu().numpy()
+            done, over_budget = (int(x) for x in tot["counts"].cpu())
+            with np.errstate(invalid="ignore", divide="ignore"):
+                miou_s = np.nanmean(np.where(u_sem > 0, i_sem / u_sem, np.nan))
+                miou_i = np.nanmean(np.where(u_ins > 0, i_ins / u_ins, np.nan))
+            io.cprint("[%s] all %d ranks (%04d/%04d)  Sem mIoU: %.2f%%  Ins mIoU: %.2f%%"
+                      % (mode, n_dev, done, len(source), 100 * miou_s, 100 * miou_i))
         if over_budget:
             io.cprint(f"WARNING: {over_budget}/{len(source)} scenes exceeded a "
                       f"static budget (see per-scene warnings above)")

@@ -20,8 +20,9 @@ checkpoints/<exp_name>/<model>_test.log. The weights are the latest
 checkpoint of checkpoints/<exp_name>/<model> (`{"model": state_dict}`:
 cli/stage2_train_minkunet.py writes MinkUNet's; KPConv's comes from
 models.convert until its trainer is ported); without one the model runs on
-random weights from seed 0, with a warning. Data parallelism
-(`--num_devices` > 1) raises."""
+random weights from seed 0, with a warning. `--num_devices` is accepted and
+not read, as the JAX driver takes it from its common flags and ignores it:
+the evaluation runs on one card."""
 
 from __future__ import annotations
 
@@ -231,8 +232,6 @@ def main(argv: Sequence[str] | None = None):
                    help="write per-scene nyu40 prediction .txt files")
     args = p.parse_args(argv)
 
-    if args.num_devices not in (None, 1):
-        raise NotImplementedError("data parallelism waits for the port of parallel/dp.py")
     dev = resolve_device(args.device)
     io = IOStream(os.path.join("checkpoints", args.exp_name, f"{args.model}_test.log"))
     source = SceneSource(args)

@@ -27,15 +27,26 @@ the pyramid there and runs `train_step`.
 Runs on the card unless `--device cpu`. Writes checkpoints/<exp>/kpconv
 (`{"model": state_dict, ...}`, power-of-two retention) and kpconv_best,
 which cli/stage2_test_semantic.py --model kpconv and cli/introspect_kpconv.py
-restore. Not ported: data parallelism (`--num_devices` > 1 raises; it waits
-for the port of parallel/dp.py)."""
+restore. `--num_devices N` (default every visible card; 1 on the CPU)
+starts N ranks (parallel/dp.py): every rank loads the scenes and runs the
+same calibration, and rank 0's prefetcher draws each step's N batches
+from the one sampler and generator, in rank order, as the JAX driver's
+`[sample_batch(sampler) for _ in range(n_dev)]` does, and hands rank d its
+own over the host group. Each rank builds its pyramid on its card, clips
+and scales its own gradients, and the ranks average them and their
+running statistics (`build_kpconv_dp_step`: transform, then mean); the
+loss is summed (logged divided by N), the accuracy averaged. Rank 0 alone
+logs, validates and saves, its checkpoint holds the sampler's and
+generator's states after the step's N draws; `--resume` restores on every
+rank. With N = 1 the driver runs in its own process."""
 
 from __future__ import annotations
 
 import argparse
 import os
 import time
-from collections.abc import Sequence
+from datetime import timedelta
+from collections.abc import Callable, Sequence
 
 import numpy as np
 import torch
@@ -51,6 +62,7 @@ from seggroup_tpu_torch.device import PhaseClock, resolve_device
 from seggroup_tpu_torch.models.kpconv import (KPFCNN, PyramidLevel, build_pyramid,
                                               calibrate_batch_limit, calibrate_neighbor_caps,
                                               sample_sphere_sizes)
+from seggroup_tpu_torch.parallel.dp import Mesh, build_kpconv_dp_step, launch, resolve_num_devices
 from seggroup_tpu_torch.solvers import ScheduledLR, make_optimizer, make_schedule
 from seggroup_tpu_torch.utils.checkpoint import CheckpointManager, lenient_restore
 from seggroup_tpu_torch.utils.logging import IOStream
@@ -142,14 +154,19 @@ def make_sgd(model: torch.nn.Module, lr: float) -> tuple[torch.optim.Optimizer, 
 def train_step(model: KPFCNN, optimizer: torch.optim.Optimizer, scheduler: ScheduledLR,
                pyramid: list[PyramidLevel], feats: torch.Tensor, labels: torch.Tensor,
                offset_loss_weight: float = 0.1, grad_clip_norm: float = 100.0,
-               offset_lr_scale: float = 0.1, phase_seconds: dict | None = None
+               offset_lr_scale: float = 0.1, phase_seconds: dict | None = None,
+               sync: Callable[[torch.nn.Module], None] | None = None
                ) -> tuple[torch.Tensor, torch.Tensor]:
     """One step of the JAX driver's `step` on the model's device: the train
     forward (TFBatchNorm batch statistics, which move the running ones),
     `kpconv_loss`, the backward, `transform_grads` and one SGD step.
     Returns (loss, accuracy) on the device. With `phase_seconds`, the device
     is synchronised around "forward", "loss", "backward", "grad transform"
-    and "optimizer", and their wall seconds are added to the dict."""
+    and "optimizer", and their wall seconds are added to the dict.
+    `sync(model)`, where given, runs after the gradient transform and
+    before the optimizer (parallel/dp.py `Mesh.sync`: the transform acts
+    on each rank's own gradients before their mean, as the JAX DP step's
+    grad_transform does), timed as "all-reduce"."""
     phase = PhaseClock(feats.device, phase_seconds)
     with phase("forward"):
         logits, regs = model(pyramid, feats, train=True)
@@ -163,6 +180,9 @@ def train_step(model: KPFCNN, optimizer: torch.optim.Optimizer, scheduler: Sched
                 p.grad = torch.zeros_like(p)
     with phase("grad transform"):
         transform_grads(model, offset_lr_scale, grad_clip_norm)
+    if sync is not None:
+        with phase("all-reduce"):
+            sync(model)
     with phase("optimizer"):
         optimizer.step()
         scheduler.step()
@@ -224,13 +244,24 @@ def main(argv: Sequence[str] | None = None):
                         "shape-mismatch tolerance (lenient loading)")
     args = p.parse_args(argv)
 
-    if args.num_devices not in (None, 1):
-        raise NotImplementedError("data parallelism waits for the port of parallel/dp.py")
-    dev = resolve_device(args.device)
-    exp_dir = os.path.join("checkpoints", args.exp_name)
-    io = IOStream(os.path.join(exp_dir, "kpconv.log"))
-    tb = ScalarWriter(os.path.join(exp_dir, "tb"), enabled=args.tensorboard)
+    n_dev = resolve_num_devices(args.num_devices, args.device)
+    if n_dev == 1:
+        resolve_device(args.device)
     dump_config(args, "stage2_kpconv")
+    if n_dev > 1:
+        return launch(_train, n_dev, args.device, args,
+                      timeout=timedelta(seconds=args.dist_timeout))
+    return _train(None, args)
+
+
+def _train(mesh: Mesh | None, args):
+    """The training loop of one rank (`mesh`), or of the only process;
+    returns (last step, best validation accuracy) (rank 0's)."""
+    dev = resolve_device(args.device if mesh is None else mesh.device)
+    n_dev, rank = (1, 0) if mesh is None else (mesh.size, mesh.rank)
+    exp_dir = os.path.join("checkpoints", args.exp_name)
+    io = IOStream(os.path.join(exp_dir, "kpconv.log"), enabled=rank == 0)
+    tb = ScalarWriter(os.path.join(exp_dir, "tb"), enabled=args.tensorboard and rank == 0)
     source = SceneSource(args)
     io.cprint(f"scenes: {len(source)}")
     rng = np.random.default_rng(args.seed)
@@ -300,12 +331,13 @@ def main(argv: Sequence[str] | None = None):
                       f"(lr continues at {scheduler.schedule(start_it):.4g})")
 
     def draw_step(_):
+        # the step's batch (data-parallel: its n_dev batches, in rank order);
         # the prefetcher runs ahead, so the live states are a later step's:
-        # each batch carries the states its draw left
-        batch = draw(sampler)
+        # each step carries the states its draws left
+        batches = [draw(sampler) for _ in range(n_dev)]
         state = sampler.state()
         state["potentials"] = [torch.from_numpy(x) for x in state["potentials"]]
-        return batch, state, rng.bit_generator.state
+        return batches[0] if mesh is None else batches, state, rng.bit_generator.state
 
     def validate():
         """Vote-smoothed held-out accuracy (the JAX driver's `validate`): a
@@ -355,47 +387,66 @@ def main(argv: Sequence[str] | None = None):
             tot += int(ok.sum())
         return hits / max(tot, 1)
 
-    prefetch = HostPrefetcher(draw_step, depth=args.prefetch_depth, workers=1, start=start_it)
+    if mesh is None:
+        def step(pts, feats, labs, bids, valid):
+            pyr = to_device_pyramid(pts, bids, valid, dev, args.dl0, caps, nbr_caps)
+            return train_step(model, optimizer, scheduler, pyr,
+                              torch.from_numpy(feats).to(dev), torch.from_numpy(labs).to(dev),
+                              args.offset_loss_weight, args.grad_clip_norm,
+                              args.offset_lr_scale)
+    else:
+        mesh.replicate(model, optimizer)
+        io.cprint(f"data parallel over {n_dev} devices")
+        step = build_kpconv_dp_step(model, optimizer, scheduler, mesh, args.dl0, caps, nbr_caps,
+                                    args.offset_loss_weight, args.grad_clip_norm,
+                                    args.offset_lr_scale)
+    # rank 0 draws every rank's batches and hands them out
+    prefetch = (HostPrefetcher(draw_step, depth=args.prefetch_depth, workers=1, start=start_it)
+                if rank == 0 else None)
 
-    def save_state(it, states):  # after step `it`, whose draw left `states`
-        ckpt.save(it, {"model": model.state_dict(), "optimizer": optimizer.state_dict(),
-                       "scheduler": scheduler.state_dict(), "sampler": states[0],
-                       "batch_rng": states[1]})
+    def save_state(it, states):  # after step `it`, whose draws left `states`
+        if rank == 0:
+            ckpt.save(it, {"model": model.state_dict(), "optimizer": optimizer.state_dict(),
+                           "scheduler": scheduler.state_dict(), "sampler": states[0],
+                           "batch_rng": states[1]})
 
     best_val = -1.0
     t0 = time.time()
     it = start_it
     try:
         for it in range(start_it + 1, args.steps + 1):
-            (pts, feats, labs, bids, valid), *states = next(prefetch)
-            pyr = to_device_pyramid(pts, bids, valid, dev, args.dl0, caps, nbr_caps)
-            loss, acc = train_step(model, optimizer, scheduler, pyr,
-                                   torch.from_numpy(feats).to(dev),
-                                   torch.from_numpy(labs).to(dev),
-                                   args.offset_loss_weight, args.grad_clip_norm,
-                                   args.offset_lr_scale)
+            batch, *states = next(prefetch) if rank == 0 else (None, None, None)
+            loss, acc = step(*(batch if mesh is None else mesh.scatter(batch)))
+            loss = loss / n_dev
             if it % 10 == 0 or it == args.steps:
                 io.cprint("step %d/%d  loss %.4f  acc %.2f%%  (%.2fs/it)"
                           % (it, args.steps, float(loss), 100 * float(acc),
                              (time.time() - t0) / max(1, it - start_it)))
                 tb.add_scalar("train/loss", float(loss), it)
                 tb.add_scalar("train/acc", 100 * float(acc), it)
-            if should_stop(args.exp_name):
+            stop = rank == 0 and should_stop(args.exp_name)
+            if mesh is not None:
+                stop = mesh.any(stop)
+            if stop:
                 io.cprint("STOP file found — saving and exiting")
                 save_state(it, states)
                 break
             if it % args.save_freq == 0 or it == args.steps:
                 save_state(it, states)
-                val_acc = validate()
-                marker = ""
-                if val_acc > best_val:
-                    best_val = val_acc
-                    best_ckpt.save(it, {"model": model.state_dict()})
-                    marker = "  (new best)"
-                io.cprint(f"==> saved step {it}  val acc {100*val_acc:.2f}%{marker}")
-                tb.add_scalar("val/acc", 100 * val_acc, it)
+                if rank == 0:
+                    val_acc = validate()
+                    marker = ""
+                    if val_acc > best_val:
+                        best_val = val_acc
+                        best_ckpt.save(it, {"model": model.state_dict()})
+                        marker = "  (new best)"
+                    io.cprint(f"==> saved step {it}  val acc {100*val_acc:.2f}%{marker}")
+                    tb.add_scalar("val/acc", 100 * val_acc, it)
+                if mesh is not None:
+                    mesh.barrier()
     finally:
-        prefetch.close()
+        if prefetch is not None:
+            prefetch.close()
         tb.close()
         io.close()
     return it, best_val

@@ -26,14 +26,28 @@ iterations.
     python -m seggroup_tpu_torch.cli.stage2_train_minkunet --synthetic 2 --max_iter 2 \\
         --model Res16UNet14A --capacity 4096 --batch_size 2 --device cpu [--plan_mode host]
 
-Runs on the card unless `--device cpu`. Not ported: data parallelism
-(`--num_devices` > 1 raises; it waits for the port of parallel/dp.py)."""
+Runs on the card unless `--device cpu`. `--num_devices N` (default every
+visible card; 1 on the CPU) starts N ranks (parallel/dp.py), each with its
+own prefetcher: at step s (counted from 0) rank d trains on the JAX
+driver's batch `make_batch(s * N + d + 1)`, a pure function of its seed, so
+nothing is sent between ranks; each rank unpacks its batch on its card
+as the single process does (`batch_on_device`: in `--plan_mode device` it
+builds the plan there, in host mode it moves its host plan there) and runs
+`build_minkunet_dp_step`. The ranks average their gradients and running
+statistics; the loss and the confusion matrix are summed over them (the
+loss logged divided by N). Rank 0 alone logs, validates and saves, the
+others wait; `--resume` restores on every rank. With N = 1 the driver runs
+in its own process.
+
+    python -m seggroup_tpu_torch.cli.stage2_train_minkunet --synthetic 2 --max_iter 2 \\
+        --model Res16UNet14A --capacity 4096 --batch_size 2 --device cpu --num_devices 2"""
 
 from __future__ import annotations
 
 import argparse
 import os
 import time
+from datetime import timedelta
 from collections.abc import Callable, Sequence
 
 import numpy as np
@@ -48,6 +62,8 @@ from seggroup_tpu_torch.data.voxel_dataset import IGNORE_LABEL, VoxelBatch, make
 from seggroup_tpu_torch.device import PhaseClock, resolve_device
 from seggroup_tpu_torch.eval.semantic import confusion_matrix, miou_from_confusion
 from seggroup_tpu_torch.models.minkunet import MinkUNet, make_minkunet
+from seggroup_tpu_torch.parallel.dp import (Mesh, build_minkunet_dp_step, launch,
+                                            resolve_num_devices)
 from seggroup_tpu_torch.solvers import ScheduledLR, make_optimizer, make_schedule
 from seggroup_tpu_torch.sparse.device_plan import (build_unet_plan_device, pack_voxel_batch,
                                                    unpack_voxel_batch)
@@ -72,7 +88,9 @@ def masked_nll(logits: torch.Tensor, labels: torch.Tensor, valid: torch.Tensor) 
 def train_step(model: MinkUNet, optimizer: torch.optim.Optimizer, scheduler: ScheduledLR,
                st: SparseTensor, labels: torch.Tensor,
                phase_seconds: dict | None = None,
-               plan: dict | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+               plan: dict | None = None,
+               sync: Callable[[torch.nn.Module], None] | None = None
+               ) -> tuple[torch.Tensor, torch.Tensor]:
     """One training step on the model's device: the forward with BatchNorm
     batch statistics (which updates the running statistics) over the
     batch's pyramid `plan` (built inside the forward without one), the
@@ -80,7 +98,9 @@ def train_step(model: MinkUNet, optimizer: torch.optim.Optimizer, scheduler: Sch
     Returns (loss, confusion matrix of the step's argmax over valid rows),
     both on the device, so nothing waits for it. With `phase_seconds`, the
     device is synchronised around "forward", "backward" and "optimizer",
-    and their wall seconds are added to the dict."""
+    and their wall seconds are added to the dict. `sync(model)`, where
+    given, runs between the backward and the optimizer (parallel/dp.py
+    `Mesh.sync`), timed as "all-reduce"."""
     phase = PhaseClock(st.coords.device, phase_seconds)
     with phase("forward"):
         # the nets without plans (ResUNet, MinkUNetHyper) take none
@@ -89,6 +109,9 @@ def train_step(model: MinkUNet, optimizer: torch.optim.Optimizer, scheduler: Sch
     with phase("backward"):
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
+    if sync is not None:
+        with phase("all-reduce"):
+            sync(model)
     with phase("optimizer"):
         optimizer.step()
         scheduler.step()
@@ -175,13 +198,24 @@ def main(argv: Sequence[str] | None = None):
                         "fresh values where names or shapes differ")
     args = p.parse_args(argv)
 
-    dev = resolve_device(args.device)
-    if args.num_devices not in (None, 1):
-        raise NotImplementedError("data parallelism waits for the port of parallel/dp.py")
-    exp_dir = os.path.join("checkpoints", args.exp_name)
-    io = IOStream(os.path.join(exp_dir, "minkunet.log"))
-    tb = ScalarWriter(os.path.join(exp_dir, "tb"), enabled=args.tensorboard)
+    n_dev = resolve_num_devices(args.num_devices, args.device)
+    if n_dev == 1:
+        resolve_device(args.device)
     dump_config(args, "stage2_minkunet")
+    if n_dev > 1:
+        return launch(_train, n_dev, args.device, args,
+                      timeout=timedelta(seconds=args.dist_timeout))
+    return _train(None, args)
+
+
+def _train(mesh: Mesh | None, args):
+    """The training loop of one rank (`mesh`), or of the only process;
+    returns (last iteration, best validation mIoU) (rank 0's)."""
+    dev = resolve_device(args.device if mesh is None else mesh.device)
+    n_dev, rank = (1, 0) if mesh is None else (mesh.size, mesh.rank)
+    exp_dir = os.path.join("checkpoints", args.exp_name)
+    io = IOStream(os.path.join(exp_dir, "minkunet.log"), enabled=rank == 0)
+    tb = ScalarWriter(os.path.join(exp_dir, "tb"), enabled=args.tensorboard and rank == 0)
     source = SceneSource(args)
     n_val = int(len(source) * args.val_frac)
     if args.val_frac > 0 and n_val == 0 and len(source) > 1:
@@ -226,8 +260,21 @@ def main(argv: Sequence[str] | None = None):
                       f"(lr continues at {schedule(start_it):.4g})")
 
     def save_state(it):
-        ckpt.save(it, {"model": model.state_dict(), "optimizer": optimizer.state_dict(),
-                       "scheduler": scheduler.state_dict()})
+        if rank == 0:
+            ckpt.save(it, {"model": model.state_dict(), "optimizer": optimizer.state_dict(),
+                           "scheduler": scheduler.state_dict()})
+
+    if mesh is None:
+        def step(batch):
+            st, labels, plan = batch_on_device(*batch, dev, caps)
+            return train_step(model, optimizer, scheduler, st, labels, plan=plan)
+    else:
+        mesh.replicate(model, optimizer)
+        io.cprint(f"data parallel over {n_dev} devices ({args.batch_size} scenes/device)")
+        dp = build_minkunet_dp_step(model, optimizer, scheduler, mesh)
+
+        def step(batch):
+            return dp(*batch_on_device(*batch, dev, caps))
 
     def validate():
         hist = torch.zeros((args.num_classes, args.num_classes), dtype=torch.int64,
@@ -242,7 +289,8 @@ def main(argv: Sequence[str] | None = None):
                                          args.num_classes)
         return miou_from_confusion(hist.cpu().numpy())[0]
 
-    prefetch = HostPrefetcher(lambda s: draw(s + 1, train_idx, True),
+    # rank d's batch of step s (from 0) is the JAX driver's shard d
+    prefetch = HostPrefetcher(lambda s: draw(s * n_dev + rank + 1, train_idx, True),
                               depth=args.prefetch_depth, workers=args.prefetch_workers,
                               start=start_it)
     hist_acc = np.zeros((args.num_classes, args.num_classes))
@@ -253,8 +301,8 @@ def main(argv: Sequence[str] | None = None):
     it = start_it
     try:
         for it in range(start_it + 1, args.max_iter + 1):
-            st, labels, plan = batch_on_device(*next(prefetch), dev, caps)
-            loss, hist = train_step(model, optimizer, scheduler, st, labels, plan=plan)
+            loss, hist = step(next(prefetch))
+            loss = loss / n_dev
             hist_dev = hist if hist_dev is None else hist_dev + hist
             if it % 10 == 0 or it == args.max_iter:
                 hist_acc = hist_acc + hist_dev.cpu().numpy()
@@ -268,20 +316,26 @@ def main(argv: Sequence[str] | None = None):
                 tb.add_scalar("train/lr", float(schedule(it)), it)
                 t_window = time.time()
                 it_window = it
-            if should_stop(args.exp_name):
+            stop = rank == 0 and should_stop(args.exp_name)
+            if mesh is not None:
+                stop = mesh.any(stop)
+            if stop:
                 io.cprint("STOP file found — saving and exiting")
                 save_state(it)
                 break
             if it % args.val_freq == 0 or it == args.max_iter:
                 save_state(it)
-                val_miou = validate()
-                marker = ""
-                if val_miou > best_val:
-                    best_val = val_miou
-                    best_ckpt.save(it, {"model": model.state_dict()})
-                    marker = "  (new best)"
-                io.cprint(f"==> saved iter {it}  val mIoU {100 * val_miou:.2f}%{marker}")
-                tb.add_scalar("val/miou", 100 * val_miou, it)
+                if rank == 0:
+                    val_miou = validate()
+                    marker = ""
+                    if val_miou > best_val:
+                        best_val = val_miou
+                        best_ckpt.save(it, {"model": model.state_dict()})
+                        marker = "  (new best)"
+                    io.cprint(f"==> saved iter {it}  val mIoU {100 * val_miou:.2f}%{marker}")
+                    tb.add_scalar("val/miou", 100 * val_miou, it)
+                if mesh is not None:
+                    mesh.barrier()
                 t_window = time.time()
                 it_window = it
     finally:

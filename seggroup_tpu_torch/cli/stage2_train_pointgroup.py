@@ -33,14 +33,28 @@ generator on resume instead.
         --steps 4 --prepare_steps 2 --save_freq 2 --point_cap 4096 --voxel_cap 4096 --m 8
 
 Runs on the card unless `--device cpu`. Writes checkpoints/<exp>/pointgroup,
-which cli/stage2_test_pointgroup.py restores. Not ported: data parallelism
-(`--num_devices` > 1 raises)."""
+which cli/stage2_test_pointgroup.py restores. `--num_devices N` (default
+every visible card; 1 on the CPU) starts N ranks (parallel/dp.py): rank 0's
+prefetcher draws each step's N batches from the one generator, in rank
+order, as the JAX driver's `[sample_batch() for _ in range(n_dev)]` does,
+and hands rank d its own (the wire, or the host batch and plan, over the
+host group); each rank unpacks it on its card and draws its jitter from a
+generator of its own, seeded by (seed + 1, rank). The ranks average their
+gradients and running statistics (`build_pointgroup_dp_step`)
+and sum the loss, logged divided by N. Rank 0 alone logs, validates and
+saves, its checkpoint holds the generator's state after the step's N
+draws; `--resume` restores on every rank. With N = 1 the driver runs in
+its own process.
+
+    python -m seggroup_tpu_torch.cli.stage2_train_pointgroup --synthetic 3 --device cpu \\
+        --steps 4 --prepare_steps 2 --point_cap 4096 --voxel_cap 4096 --m 8 --num_devices 2"""
 
 from __future__ import annotations
 
 import argparse
 import os
 import time
+from datetime import timedelta
 from collections.abc import Callable, Sequence
 
 import numpy as np
@@ -55,6 +69,8 @@ from seggroup_tpu_torch.data.pg_wire import (host_batch_on_device, pack_pg_batch
                                              unpack_pg_batch)
 from seggroup_tpu_torch.device import PhaseClock, resolve_device
 from seggroup_tpu_torch.models.pointgroup import PointGroup, pointgroup_loss
+from seggroup_tpu_torch.parallel.dp import (Mesh, build_pointgroup_dp_step, launch, rank_seed,
+                                            resolve_num_devices)
 from seggroup_tpu_torch.solvers import ScheduledLR, make_optimizer
 from seggroup_tpu_torch.sparse.device_plan import build_unet_plan_device
 from seggroup_tpu_torch.sparse.plan import plan_to_device
@@ -81,7 +97,9 @@ def make_adam(model: PointGroup, schedule: Callable[[int], float]
 def train_step(model: PointGroup, optimizer: torch.optim.Optimizer, scheduler: ScheduledLR,
                batch: tuple, do_clustering: bool, jitter: torch.Tensor | None,
                phase_seconds: dict | None = None,
-               plan: dict | None = None) -> tuple[torch.Tensor, dict, torch.Tensor]:
+               plan: dict | None = None,
+               sync: Callable[[torch.nn.Module], None] | None = None
+               ) -> tuple[torch.Tensor, dict, torch.Tensor]:
     """One training step on the model's device, the single-device form of
     parallel/dp.py `build_pointgroup_dp_step` (its pmean and psum are the
     identity on one device): the `train` forward (BatchNorm batch
@@ -97,7 +115,9 @@ def train_step(model: PointGroup, optimizer: torch.optim.Optimizer, scheduler: S
     pyramid plan (the forward builds its rulebooks without one). With
     `phase_seconds`, the device is synchronised around "forward" (and
     inside it "unet", "clustering", "scorenet"), "loss", "backward" and
-    "optimizer", and their wall seconds are added to the dict."""
+    "optimizer", and their wall seconds are added to the dict. `sync(model)`,
+    where given, runs between the backward and the optimizer
+    (parallel/dp.py `Mesh.sync`), timed as "all-reduce"."""
     st, p2v, coords, batch_ids, valid, labels, inst, centroid, pointnum = batch
     phase = PhaseClock(coords.device, phase_seconds)
     with phase("forward"):
@@ -113,6 +133,9 @@ def train_step(model: PointGroup, optimizer: torch.optim.Optimizer, scheduler: S
         for p in model.parameters():
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+    if sync is not None:
+        with phase("all-reduce"):
+            sync(model)
     with phase("optimizer"):
         optimizer.step()
         scheduler.step()
@@ -197,13 +220,24 @@ def main(argv: Sequence[str] | None = None):
                         "shapes that differ keep their init")
     args = p.parse_args(argv)
 
-    if args.num_devices not in (None, 1):
-        raise NotImplementedError("data parallelism waits for the port of parallel/dp.py")
-    dev = resolve_device(args.device)
-    exp_dir = os.path.join("checkpoints", args.exp_name)
-    io = IOStream(os.path.join(exp_dir, "pointgroup.log"))
-    tb = ScalarWriter(os.path.join(exp_dir, "tb"), enabled=args.tensorboard)
+    n_dev = resolve_num_devices(args.num_devices, args.device)
+    if n_dev == 1:
+        resolve_device(args.device)
     dump_config(args, "stage2_pointgroup")
+    if n_dev > 1:
+        return launch(_train, n_dev, args.device, args,
+                      timeout=timedelta(seconds=args.dist_timeout))
+    return _train(None, args)
+
+
+def _train(mesh: Mesh | None, args):
+    """The training loop of one rank (`mesh`), or of the only process;
+    returns (last step, best validation loss) (rank 0's)."""
+    dev = resolve_device(args.device if mesh is None else mesh.device)
+    n_dev, rank = (1, 0) if mesh is None else (mesh.size, mesh.rank)
+    exp_dir = os.path.join("checkpoints", args.exp_name)
+    io = IOStream(os.path.join(exp_dir, "pointgroup.log"), enabled=rank == 0)
+    tb = ScalarWriter(os.path.join(exp_dir, "tb"), enabled=args.tensorboard and rank == 0)
     source = SceneSource(args)
     n_val = int(len(source) * args.val_frac)
     if args.val_frac > 0 and n_val == 0 and len(source) > 1:
@@ -252,14 +286,16 @@ def main(argv: Sequence[str] | None = None):
             io.cprint(f"resumed from step {start_it} (lr continues at {schedule(start_it):.4g})")
 
     def draw_batch(_):
+        # the step's batch (data-parallel: its n_dev batches, in rank order);
         # the prefetcher runs ahead, so the generator's live state is a later
-        # step's: each batch carries the state its draw left
-        batch = make_batch(batch_rng, train_idx, True)
-        return batch, batch_rng.bit_generator.state
+        # step's: each step carries the state its draws left
+        batches = [make_batch(batch_rng, train_idx, True) for _ in range(n_dev)]
+        return batches[0] if mesh is None else batches, batch_rng.bit_generator.state
 
-    def save_state(it):  # after step `it`, whose draw left `rng_state`
-        ckpt.save(it, {"model": model.state_dict(), "optimizer": optimizer.state_dict(),
-                       "scheduler": scheduler.state_dict(), "batch_rng": rng_state})
+    def save_state(it):  # after step `it`, whose draws left `rng_state`
+        if rank == 0:
+            ckpt.save(it, {"model": model.state_dict(), "optimizer": optimizer.state_dict(),
+                           "scheduler": scheduler.state_dict(), "batch_rng": rng_state})
 
     val_rng = np.random.default_rng(args.seed + 100)
 
@@ -279,11 +315,26 @@ def main(argv: Sequence[str] | None = None):
         return float(np.mean(losses))
 
     # one jitter draw a step, clustering or not: replayed on resume
-    jitter_gen = torch.Generator().manual_seed(args.seed + 1)
+    jitter_gen = torch.Generator().manual_seed(
+        args.seed + 1 if mesh is None else rank_seed(args.seed + 1, rank))
     for _ in range(start_it):
         torch.rand(3, generator=jitter_gen)
-    prefetch = HostPrefetcher(draw_batch, depth=args.prefetch_depth, workers=1,
-                              start=start_it)
+    if mesh is None:
+        def step(raw, clustering, jitter):
+            batch, plan = batch_on_device(raw, args.voxel_cap, dev)
+            return train_step(model, optimizer, scheduler, batch, clustering, jitter,
+                              plan=plan)[:2]
+    else:
+        mesh.replicate(model, optimizer)
+        io.cprint(f"data parallel over {n_dev} devices")
+        dp = {c: build_pointgroup_dp_step(model, optimizer, scheduler, mesh, c)
+              for c in (False, True)}
+
+        def step(raw, clustering, jitter):
+            return dp[clustering](*batch_on_device(raw, args.voxel_cap, dev), jitter), {}
+    # rank 0 draws every rank's batches and hands them out
+    prefetch = (HostPrefetcher(draw_batch, depth=args.prefetch_depth, workers=1,
+                               start=start_it) if rank == 0 else None)
     best_val = float("inf")
     t0 = time.time()
     it = start_it
@@ -291,10 +342,11 @@ def main(argv: Sequence[str] | None = None):
         for it in range(start_it + 1, args.steps + 1):
             jitter = torch.rand(3, generator=jitter_gen).to(dev)
             clustering = it > args.prepare_steps
-            raw, rng_state = next(prefetch)
-            batch, plan = batch_on_device(raw, args.voxel_cap, dev)
-            loss, aux, _ = train_step(model, optimizer, scheduler, batch, clustering, jitter,
-                                      plan=plan)
+            raw, rng_state = next(prefetch) if rank == 0 else (None, None)
+            if mesh is not None:
+                raw = mesh.scatter(raw)
+            loss, aux = step(raw, clustering, jitter)
+            loss = loss / n_dev
             if it % 10 == 0 or it == args.steps:
                 parts = "  ".join(f"{k} {float(v):.4f}" for k, v in aux.items())
                 io.cprint("step %d/%d  loss %.4f  %s  (%.2fs/it)"
@@ -303,22 +355,29 @@ def main(argv: Sequence[str] | None = None):
                 tb.add_scalar("train/loss", float(loss), it)
                 for k, v in aux.items():
                     tb.add_scalar(f"train/{k}", float(v), it)
-            if should_stop(args.exp_name):
+            stop = rank == 0 and should_stop(args.exp_name)
+            if mesh is not None:
+                stop = mesh.any(stop)
+            if stop:
                 io.cprint("STOP file found — saving and exiting")
                 save_state(it)
                 break
             if it % args.save_freq == 0 or it == args.steps:
                 save_state(it)
-                vl = validate()
-                marker = ""
-                if vl < best_val:
-                    best_val = vl
-                    best_ckpt.save(it, {"model": model.state_dict()})
-                    marker = "  (new best)"
-                io.cprint(f"==> saved step {it}  val loss {vl:.4f}{marker}")
-                tb.add_scalar("val/loss", float(vl), it)
+                if rank == 0:
+                    vl = validate()
+                    marker = ""
+                    if vl < best_val:
+                        best_val = vl
+                        best_ckpt.save(it, {"model": model.state_dict()})
+                        marker = "  (new best)"
+                    io.cprint(f"==> saved step {it}  val loss {vl:.4f}{marker}")
+                    tb.add_scalar("val/loss", float(vl), it)
+                if mesh is not None:
+                    mesh.barrier()
     finally:
-        prefetch.close()
+        if prefetch is not None:
+            prefetch.close()
         tb.close()
         io.close()
     return it, best_val

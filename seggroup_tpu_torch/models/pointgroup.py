@@ -196,7 +196,9 @@ class PointGroup(nn.Module):
                  cluster_neighbors: int = 32, score_scale: float = 50.0,
                  score_fullscale: float = 14.0, max_proposals_per_source: int = 128,
                  score_cap: int = 8192, level_caps: Sequence[int] | None = None,
-                 in_channels: int = 6, seed: int = 0, device: str | torch.device = "cuda"):
+                 in_channels: int = 6, score_stop_gradient: bool = False,
+                 skip_score_unet: bool = False, seed: int = 0,
+                 device: str | torch.device = "cuda"):
         super().__init__()
         dev = resolve_device(device)
         self.classes, self.m = classes, m
@@ -206,6 +208,11 @@ class PointGroup(nn.Module):
         self.score_scale, self.score_fullscale = score_scale, score_fullscale
         self.max_proposals_per_source = max_proposals_per_source
         self.score_cap = score_cap
+        # the JAX module's probes of the train step's backward: the point
+        # features enter the ScoreNet detached; the ScoreNet's U-Net is left
+        # out (and its parameters with it)
+        self.score_stop_gradient = score_stop_gradient
+        self.skip_score_unet = skip_score_unet
 
         self.input_conv = SubMConv(in_channels, m)
         self.unet = UBlock([m * (i + 1) for i in range(7)], block_reps, level_caps)
@@ -214,8 +221,8 @@ class PointGroup(nn.Module):
         self.offset_dense = nn.Linear(m, m)
         self.offset_bn = _bn(m)
         self.offset_linear = nn.Linear(m, 3)
-        self.score_unet = UBlock([m, 2 * m], 2, [score_cap, score_cap // 2],
-                                 key_xy_bits=(5, 5))
+        self.score_unet = None if skip_score_unet else UBlock(
+            [m, 2 * m], 2, [score_cap, score_cap // 2], key_xy_bits=(5, 5))
         self.score_bn = _bn(m)
         self.score_linear = nn.Linear(m, 1)
         variance_scaling_init_(self, seed)
@@ -368,12 +375,15 @@ class PointGroup(nn.Module):
         p_total = 2 * self.max_proposals_per_source
         flat_prop = proposal_of_point.reshape(-1)
         fv = flat_prop < p_total
+        if self.score_stop_gradient:
+            point_feats = point_feats.detach()
         flat_feats = torch.cat([point_feats, point_feats])
         sv_feats = segment_mean_sorted(torch.where(fv[:, None], flat_feats, 0.0),
                                        score_vox.point2voxel, self.score_cap)
         st = SparseTensor(score_vox.voxel_coords, sv_feats, score_vox.voxel_valid,
                           score_vox.num_voxels)
-        st = self.score_unet(st, train, phase, plan)
+        if self.score_unet is not None:
+            st = self.score_unet(st, train, phase, plan)
         hs = F.relu(self.score_bn(st.feats, st.valid, train))
         hs_pad = torch.cat([hs, hs.new_zeros((1, hs.shape[1]))])
         flat_score_feats = hs_pad[torch.clamp(score_vox.point2voxel, max=self.score_cap).long()]
@@ -497,14 +507,17 @@ def _safe_norm(x: torch.Tensor) -> torch.Tensor:
 def pointgroup_loss(out: PGOutput, labels: torch.Tensor, instance_labels: torch.Tensor,
                     instance_centroids: torch.Tensor, instance_pointnum: torch.Tensor,
                     coords: torch.Tensor, point_valid: torch.Tensor, num_instances_cap: int,
-                    with_score: bool, fg_thresh: float = 0.75, bg_thresh: float = 0.25
-                    ) -> tuple[torch.Tensor, dict]:
+                    with_score: bool, fg_thresh: float = 0.75, bg_thresh: float = 0.25,
+                    loss_weight: Sequence[float] = (1.0, 1.0, 1.0, 1.0),
+                    gt_scores: torch.Tensor | None = None) -> tuple[torch.Tensor, dict]:
     """(total, {"semantic_loss", "offset_norm_loss", "offset_dir_loss"[,
     "score_loss"]}): the masked mean NLL of the semantic scores (labels
     IGNORE excluded), the mean L1 distance of the offsets to the instance
     centroids and the mean negative cosine between them over the points of
     an instance, and with `with_score` the masked BCE of the valid
-    proposals' scores against pg_score_targets."""
+    proposals' scores against pg_score_targets (or the given `gt_scores`,
+    which the split-program trainer computes apart), weighted by
+    `loss_weight` in that order."""
     classes = out.semantic_scores.shape[-1]
     ok = point_valid & (labels != IGNORE)
     lp = F.log_softmax(out.semantic_scores, dim=-1)
@@ -521,17 +534,19 @@ def pointgroup_loss(out: PGOutput, labels: torch.Tensor, instance_labels: torch.
     pt_n = out.pt_offsets / (_safe_norm(out.pt_offsets) + 1e-8)
     offset_dir_loss = (-(gt_n * pt_n).sum(-1) * fiv).sum() / (fiv.sum() + 1e-6)
 
-    total = semantic_loss + offset_norm_loss + offset_dir_loss
+    total = (loss_weight[0] * semantic_loss + loss_weight[1] * offset_norm_loss
+             + loss_weight[2] * offset_dir_loss)
     aux = {"semantic_loss": semantic_loss, "offset_norm_loss": offset_norm_loss,
            "offset_dir_loss": offset_dir_loss}
     if with_score:
-        gt_scores = pg_score_targets(out.proposal_of_point, out.proposal_valid.shape[0],
-                                     instance_labels, point_valid, instance_pointnum,
-                                     num_instances_cap, fg_thresh, bg_thresh)
+        if gt_scores is None:
+            gt_scores = pg_score_targets(out.proposal_of_point, out.proposal_valid.shape[0],
+                                         instance_labels, point_valid, instance_pointnum,
+                                         num_instances_cap, fg_thresh, bg_thresh)
         pred = torch.sigmoid(out.scores)
         bce = -(gt_scores * torch.log(pred + 1e-12) + (1 - gt_scores) * torch.log(1 - pred + 1e-12))
         score_loss = (torch.where(out.proposal_valid, bce, 0.0).sum()
                       / torch.clamp(out.proposal_valid.sum(), min=1))
-        total = total + score_loss
+        total = total + loss_weight[3] * score_loss
         aux["score_loss"] = score_loss
     return total, aux

@@ -15,8 +15,20 @@ cluster-feature max-pools, the similarity matrix and the GCNs, not through
 the distances that decide the grouping. `fast_knn=True` is accepted for
 parity with the JAX module: it asks there for the approximate top-k, which
 XLA computes exactly off the TPU, so here it selects the exact top-k that
-`fast_knn=False` runs (ops.knn.cluster_knn). Point sharding (`shard_axis`)
-is not ported; asking for it raises NotImplementedError.
+`fast_knn=False` runs (ops.knn.cluster_knn).
+
+Point sharding (`shard_axis`, a parallel.dp.Mesh of `shard_count` ranks,
+parallel/point_sharding.py): every rank holds the whole scene and runs the
+slot-space work (grouping, GCNs, classifier) on it; the per-point edge
+convs of MLP2/MLP3, whose (N, k, C) intermediates dominate a scene's
+memory, run on the rank's slab of N / shard_count points, their BatchNorm
+statistics summed over the slabs, and the (N, 64) result is all-gathered.
+The gradients through the two collectives are the single-device ones on
+the slab: the statistics' all-reduce passes its cotangent on summed over
+the ranks (each rank holds the part that reached the statistics through
+its own rows), the gather passes each rank its own rows of the (replicated)
+cotangent, and the ranks' MLP2/MLP3 gradients then add up to the whole
+(parallel/point_sharding.build_stage1_point_sharded_grad).
 
 Weak-label conventions: weak ins/sem are 0-based with -1 = unlabeled;
 exports add +1 so 0 means unannotated."""
@@ -27,6 +39,7 @@ import math
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -50,19 +63,58 @@ _PAD_CLUSTER = 0x3FFFFFFF
 # ---------------------------------------------------------------------------
 
 
+class _SumOverRanks(torch.autograd.Function):
+    """all_reduce(SUM) of a tensor each rank holds a part of; the
+    backward sums the cotangent over the ranks too (the transpose of a
+    psum whose output every rank's rows read)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        y = x.clone()
+        dist.all_reduce(y, group=mesh.group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        dist.all_reduce(g, group=ctx.mesh.group)
+        return g, None
+
+
+class _GatherSlabs(torch.autograd.Function):
+    """The ranks' (n, C) slabs stacked into (size * n, C) in rank order
+    (a tiled all_gather); the backward hands each rank its own rows of the
+    cotangent, which every rank holds whole."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.rows = (mesh.rank * x.shape[0], (mesh.rank + 1) * x.shape[0])
+        parts = [torch.empty_like(x) for _ in range(mesh.size)]
+        dist.all_gather(parts, x.contiguous(), group=mesh.group)
+        return torch.cat(parts)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g[ctx.rows[0]:ctx.rows[1]], None
+
+
 class MaskedBatchNorm(nn.Module):
     """BatchNorm over the leading axes with a validity mask, in flax's
     convention (the JAX MaskedBatchNorm): `scale`/`bias` map, `mean`/`var`
     are the running statistics. In training the batch statistics are taken
     in float32 over the rows where `mask` holds (count at least 1, biased
     variance), normalize, and move the running ones as
-    running = momentum * running + (1 - momentum) * batch."""
+    running = momentum * running + (1 - momentum) * batch. With `axis` (a
+    parallel.dp.Mesh), the rows are one rank's slab and the count and sums
+    are summed over the ranks (the JAX module's `axis_name` psums)."""
 
     momentum = 0.9
 
-    def __init__(self, c: int, epsilon: float = 1e-5):
+    def __init__(self, c: int, epsilon: float = 1e-5, axis=None):
         super().__init__()
         self.epsilon = epsilon
+        self.axis = axis
         self.scale = nn.Parameter(torch.ones(c))
         self.bias = nn.Parameter(torch.zeros(c))
         self.register_buffer("mean", torch.zeros(c))
@@ -74,9 +126,17 @@ class MaskedBatchNorm(nn.Module):
         if train:
             m = mask.reshape(mask.shape + (1,) * (x.ndim - mask.ndim)).to(x.dtype)
             axes = tuple(range(x.ndim - 1))
-            cnt = torch.clamp(m.sum(), min=1.0)
-            mean = (x * m).sum(dim=axes) / cnt
-            var = (torch.square(x - mean) * m).sum(dim=axes) / cnt
+            if self.axis is None:
+                cnt = torch.clamp(m.sum(), min=1.0)
+                mean = (x * m).sum(dim=axes) / cnt
+                var = (torch.square(x - mean) * m).sum(dim=axes) / cnt
+            else:
+                stats = _SumOverRanks.apply(
+                    torch.cat([m.sum().reshape(1), (x * m).sum(dim=axes)]), self.axis)
+                cnt = torch.clamp(stats[0], min=1.0)
+                mean = stats[1:] / cnt
+                var = _SumOverRanks.apply(
+                    (torch.square(x - mean) * m).sum(dim=axes), self.axis) / cnt
             with torch.no_grad():
                 self.mean.copy_(self.momentum * self.mean + (1 - self.momentum) * mean)
                 self.var.copy_(self.momentum * self.var + (1 - self.momentum) * var)
@@ -124,22 +184,26 @@ class EdgeConvBlock(nn.Module):
     """Shared body of MLP2/MLP3: per-point edge conv over a precomputed kNN
     graph. Input (N, 9), idx (N, k); feature concat(f_nbr - f_self, f_self)
     -> 18 dims; 1..2 conv layers; max over k. The (N, k, C) intermediates
-    ride in `dtype` (bf16 by default); BN runs in f32."""
+    ride in `dtype` (bf16 by default); BN runs in f32.
 
-    def __init__(self, layers: int = 1, dtype: torch.dtype = torch.bfloat16):
+    Point sharding (`axis`): x, idx and point_valid are the rank's slab of
+    rows and `src` the whole (N, 9) array the (global) neighbour indices
+    read; the BatchNorm statistics are summed over the slabs."""
+
+    def __init__(self, layers: int = 1, dtype: torch.dtype = torch.bfloat16, axis=None):
         super().__init__()
         self.layers = layers
         self.dtype = dtype
         self.conv1 = nn.Linear(18, 64, bias=False)
-        self.bn1 = MaskedBatchNorm(64)
+        self.bn1 = MaskedBatchNorm(64, axis=axis)
         if layers == 2:
             self.conv2 = nn.Linear(64, 64, bias=False)
-            self.bn2 = MaskedBatchNorm(64)
+            self.bn2 = MaskedBatchNorm(64, axis=axis)
 
     def forward(self, x: torch.Tensor, idx: torch.Tensor, point_valid: torch.Tensor,
-                train: bool = False) -> torch.Tensor:
+                train: bool = False, src: torch.Tensor | None = None) -> torch.Tensor:
         xb = x.to(self.dtype)
-        nbr = xb[idx]  # (N, k, 9)
+        nbr = (xb if src is None else src.to(self.dtype))[idx]  # (N, k, 9)
         self_f = xb[:, None, :].expand_as(nbr)
         feat = torch.cat([nbr - self_f, self_f], dim=-1)  # (N, k, 18)
         mask = point_valid[:, None].expand(idx.shape)
@@ -322,13 +386,17 @@ class SegGroupGNN(nn.Module):
         cluster_cap: int = 1024,
         max_instances: int = 128,
         compute_dtype: torch.dtype = torch.bfloat16,
-        shard_axis: str | None = None,
+        shard_axis=None,
+        shard_count: int = 1,
         seed: int = 0,
         device: str | torch.device = "cuda",
     ):
         super().__init__()
-        if shard_axis is not None:
-            raise NotImplementedError("point sharding is not ported")
+        if shard_axis is not None and shard_axis.size != shard_count:
+            raise ValueError(f"shard_count {shard_count} but the mesh has {shard_axis.size} "
+                             f"ranks")
+        self.shard_axis = shard_axis
+        self.shard_count = shard_count
         dev = resolve_device(device)
         self.th_structural = th_structural
         self.th_structural_sem_infer = th_structural_sem_infer
@@ -344,9 +412,9 @@ class SegGroupGNN(nn.Module):
         self.max_instances = max_instances
 
         self.mlp_1 = MLP1()
-        self.mlp_2 = EdgeConvBlock(layers=1, dtype=compute_dtype)
+        self.mlp_2 = EdgeConvBlock(layers=1, dtype=compute_dtype, axis=shard_axis)
         self.gcn_2 = GCN(192, 192)
-        self.mlp_3 = EdgeConvBlock(layers=2, dtype=compute_dtype)
+        self.mlp_3 = EdgeConvBlock(layers=2, dtype=compute_dtype, axis=shard_axis)
         self.gcn_3 = GCN(256, 256)
         self.classifier = Classifier()
         gen = torch.Generator().manual_seed(seed)
@@ -502,7 +570,7 @@ class SegGroupGNN(nn.Module):
         center = segment_mean(pts[:, :3], roots, s)  # (S, 3)
         centered = pts[:, :3] - center[torch.clamp(roots, max=s - 1)]
         data9 = torch.cat([pts, centered], dim=-1)  # (N, 9)
-        point_feat = mlp(data9, knn_idx, pt_valid, train)  # (N, 64)
+        point_feat = self._point_edge_conv(mlp, data9, knn_idx, pt_valid, train)  # (N, 64)
         pooled = segment_max(point_feat, torch.where(pt_valid, roots, s), s)
         feat = torch.cat([feat_in, pooled], dim=-1)
 
@@ -515,6 +583,20 @@ class SegGroupGNN(nn.Module):
             g, _ = self._group(g, edges, ev, d, self.th_semantic)
         edges, ev = gr.normalize_edges(g, edges, ev)
         return feat, g, edges, ev, act_before
+
+    def _point_edge_conv(self, mlp, data9, knn_idx, pt_valid, train):
+        """The per-point edge conv; point-sharded, each rank runs its slab
+        of N / shard_count rows (the neighbour indices are global, so the
+        gathers read the whole data9) and the slabs are all-gathered."""
+        if self.shard_axis is None:
+            return mlp(data9, knn_idx, pt_valid, train)
+        n = data9.shape[0]
+        if n % self.shard_count:
+            raise ValueError(f"{n} points do not split into {self.shard_count} slabs")
+        rows = slice(self.shard_axis.rank * (n // self.shard_count),
+                     (self.shard_axis.rank + 1) * (n // self.shard_count))
+        pf = mlp(data9[rows], knn_idx[rows], pt_valid[rows], train, src=data9)
+        return _GatherSlabs.apply(pf, self.shard_axis)
 
     def _group(self, g, edges, ev, dists, th):
         fn = (gr.group_nearby_clusters_sequential if self.sequential

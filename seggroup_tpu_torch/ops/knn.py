@@ -11,14 +11,14 @@
     per-cell bucket caps), `ball_query_pair_windowed` (queries in cell-key
     order, one contiguous support window per tile of queries) and
     `ball_query_pair_fast` (the windowed form, falling back to the bucket
-    form when a window or the int32 key space overflows).
+    form when a window or the int32 key space overflows), and `ball_query`,
+    one set with itself.
 
 Every distance is formed in XLA's CPU order (ops/fma.py) and every top-k
 orders equal distances by ascending index, as `lax.top_k` does, so indices
 equal the JAX ones exactly. The JAX side's approximate top-k
 (`approx=True`) is the exact one off the TPU, so `cluster_knn` has no such
-option. The single-set `ball_query` is not
-ported."""
+option."""
 
 from __future__ import annotations
 
@@ -37,6 +37,7 @@ __all__ = [
     "ball_query_pair",
     "ball_query_pair_windowed",
     "ball_query_pair_fast",
+    "ball_query",
 ]
 
 
@@ -307,6 +308,21 @@ def ball_query_pair(support: torch.Tensor, support_batch: torch.Tensor,
         counts[sl] = got.sum(dim=1, dtype=torch.int32)
         overflow[sl] = (in_ball.sum(dim=1) > k) | bucket_overflow
     return nbrs, counts, overflow
+
+
+def ball_query(coords: torch.Tensor, radius, batch_ids: torch.Tensor, valid: torch.Tensor,
+               max_neighbors: int = 64, bucket_cap: int = 16
+               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Fixed-radius neighbours of every point among the points of its own
+    batch id (seggroup_tpu/ops/knn.py `ball_query`): `ball_query_pair` of
+    the set with itself, whose empty slots hold the point's own index
+    instead of N. Self is included. Returns (neighbors (N, K) int32,
+    counts (N,) int32, overflow (N,) bool)."""
+    nbrs, counts, overflow = ball_query_pair(coords, batch_ids, valid, coords, batch_ids,
+                                             valid, radius, max_neighbors, bucket_cap)
+    n = coords.shape[0]
+    own = torch.arange(n, dtype=torch.int32, device=coords.device)[:, None]
+    return torch.where(nbrs == n, own, nbrs), counts, overflow
 
 
 def ball_query_pair_windowed(support: torch.Tensor, support_batch: torch.Tensor,

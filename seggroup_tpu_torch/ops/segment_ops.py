@@ -17,7 +17,12 @@ gradient is that engine's gather of g / count. `segment_max_sorted` is the
 sorted engine's max: the same values as `segment_max`, but its gradient
 goes whole to one row of each segment, the earliest among equal maxima,
 where the scatter max shares it among them (PointGroup's roipool, whose
-ReLU leaves ties at 0 everywhere)."""
+ReLU leaves ties at 0 everywhere).
+
+`set_default_method` takes the JAX side's engine names and validates them;
+the port's reductions are the same for both. `segment_argmax` (the
+smallest row index among a segment's maxima) and `csr_segment_reduce`
+(segments given by CSR offsets) are the JAX functions' counterparts."""
 
 from __future__ import annotations
 
@@ -32,7 +37,22 @@ __all__ = [
     "segment_min",
     "segment_mean_sorted",
     "segment_max_sorted",
+    "segment_argmax",
+    "csr_segment_reduce",
+    "set_default_method",
 ]
+
+_DEFAULT_METHOD = "scatter"
+
+
+def set_default_method(method: str) -> None:
+    """Select the reduction engine by the JAX side's names ("scatter" |
+    "sorted"; anything else raises). The port's reductions give the same
+    results under either, as the JAX side's two engines do."""
+    global _DEFAULT_METHOD
+    if method not in ("scatter", "sorted"):
+        raise ValueError(method)
+    _DEFAULT_METHOD = method
 
 
 def invert_permutation(order: torch.Tensor) -> torch.Tensor:
@@ -198,3 +218,34 @@ def segment_max_sorted(data: torch.Tensor, segment_ids: torch.Tensor,
     out = torch.where(nonempty, d2.gather(0, torch.where(nonempty, arg, 0)),
                       0 if fill_value is None else fill_value)
     return out.reshape((num_segments,) + tuple(data.shape[1:]))
+
+
+def segment_argmax(data: torch.Tensor, segment_ids: torch.Tensor,
+                   num_segments: int) -> torch.Tensor:
+    """Per segment and per feature column, the index into data's leading
+    axis of the segment's maximum, the smallest index among equal maxima;
+    0 for an empty segment. int32, (num_segments, ...)."""
+    n = data.shape[0]
+    ids, valid = _clean_ids(segment_ids, num_segments, data)
+    best = segment_max(data, segment_ids, num_segments)
+    rows = torch.arange(n, dtype=torch.int32, device=data.device)
+    rows = rows.reshape((-1,) + (1,) * (data.ndim - 1)).expand_as(data)
+    cand = torch.where(valid & (data == best.gather(0, ids)), rows, n)
+    arg = _reduce(cand, segment_ids, num_segments, "amin", n)
+    return torch.where(arg >= n, 0, arg)
+
+
+def csr_segment_reduce(data: torch.Tensor, offsets: torch.Tensor, num_segments: int,
+                       mode: str = "max") -> torch.Tensor:
+    """The reduction over segments given as CSR offsets ((num_segments + 1,),
+    possibly padded with trailing repeats of the total): row i belongs to
+    the segment of the last offset <= i; rows at or past segment
+    num_segments are padding. `mode`: "sum", "mean", "max" or "min"."""
+    rows = torch.arange(data.shape[0], dtype=offsets.dtype, device=data.device)
+    ids = torch.searchsorted(offsets, rows, right=True) - 1
+    ids = torch.where(ids >= num_segments, -1, ids)
+    reduce = {"sum": segment_sum, "mean": segment_mean, "max": segment_max,
+              "min": segment_min}.get(mode)
+    if reduce is None:
+        raise ValueError(f"unknown mode {mode!r}")
+    return reduce(data, ids, num_segments)

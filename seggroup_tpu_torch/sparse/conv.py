@@ -447,6 +447,17 @@ def inverse_conv_up(st_coarse: SparseTensor, weights: torch.Tensor, indice_key: 
     return SparseTensor(indice_key["fine_coords"], out, fine_valid, indice_key["fine_num"])
 
 
+def sparse_batch_norm_stats(feats: torch.Tensor, valid: torch.Tensor
+                            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Masked mean and (biased) variance of the features over the valid
+    rows, the count at least 1."""
+    m = valid.to(feats.dtype)[:, None]
+    cnt = torch.clamp(m.sum(), min=1.0)
+    mean = (feats * m).sum(0) / cnt
+    var = (torch.square(feats - mean) * m).sum(0) / cnt
+    return mean, var
+
+
 def global_pool(st: SparseTensor, num_batches: int, mode: str = "mean") -> torch.Tensor:
     """(num_batches, C) per-scene mean or max of the valid rows' features
     (MinkowskiGlobalPooling); an empty scene gives 0."""

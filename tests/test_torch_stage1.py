@@ -261,8 +261,20 @@ def test_evaluate_labels_matches_jax():
 
 @pytest.mark.parametrize("kw", [dict(shard_axis="points")])
 def test_unported_options_raise(kw):
-    with pytest.raises(NotImplementedError):
-        T.SegGroupGNN(device="cpu", **kw)
+    """Point sharding is ported (tests/test_torch_parallel_sharding.py): a
+    mesh whose size is not `shard_count` raises, a matching one builds
+    the same parameters as the unsharded model."""
+    from seggroup_tpu_torch.parallel.dp import Mesh
+
+    mesh = Mesh(rank=0, size=2, device=torch.device("cpu"))
+    assert kw["shard_axis"] == "points"  # the JAX test's axis name
+    with pytest.raises(ValueError, match="shard_count"):
+        T.SegGroupGNN(device="cpu", shard_axis=mesh, shard_count=1)
+    sharded = T.SegGroupGNN(device="cpu", shard_axis=mesh, shard_count=2)
+    plain = T.SegGroupGNN(device="cpu")
+    assert sharded.state_dict().keys() == plain.state_dict().keys()
+    for k, v in plain.state_dict().items():
+        assert torch.equal(sharded.state_dict()[k], v)
 
 
 FAST = dict(sequential=False, fast_knn=True)

@@ -90,13 +90,17 @@ def test_weights_initialise_a_new_run(trained, monkeypatch):
 
 
 def test_driver_refuses_what_is_not_ported(tmp_path, monkeypatch):
-    """Data parallelism is refused; prepared npz scenes (--synthetic 0,
-    data/scannet.py) are ported now and train."""
+    """More ranks than visible cards are refused (data parallelism itself
+    runs: tests/test_torch_parallel_drivers.py); prepared npz scenes
+    (--synthetic 0, data/scannet.py) are ported now and train."""
     from seggroup_tpu_torch.data.scannet import SCENE_KEYS, save_scene_npz
 
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError):
-        S2.main(ARGS + ["--max_iter", "1", "--num_devices", "2"])
+    on_cards = [a if a != "cpu" else "cuda" for a in ARGS]
+    with pytest.raises(ValueError, match="cards are visible"):
+        S2.main(on_cards + ["--max_iter", "1",
+                            "--num_devices", str(torch.cuda.device_count() + 1)])
+    assert not (tmp_path / "checkpoints").exists()
     root = tmp_path / "prepared" / "manual"
     root.mkdir(parents=True)
     for i in range(2):

@@ -354,16 +354,20 @@ def test_resume_refuses_a_checkpoint_without_the_batch_generator(tmp_path, monke
 
 
 def test_step_schedule_and_refusals(tmp_path, monkeypatch):
-    """The JAX driver's schedule (step decay, floor 1e-6); data parallelism
-    raises instead of running; `--plan_mode host` (once refused) runs 2
-    steps, the second with the clustering, and validates."""
+    """The JAX driver's schedule (step decay, floor 1e-6); more ranks than
+    visible cards raise before anything is written (data parallelism
+    itself runs: tests/test_torch_parallel_drivers.py); `--plan_mode host`
+    (once refused) runs 2 steps, the second with the clustering, and
+    validates."""
     sched = driver.step_schedule(1e-3, 0.5, 10)
     assert [sched(s) for s in (0, 9, 10, 25)] == [1e-3, 1e-3, 5e-4, 2.5e-4]
     assert driver.step_schedule(1e-3, 0.1, 1)(20) == 1e-6
     (tmp_path / "refused").mkdir()
     monkeypatch.chdir(tmp_path / "refused")
-    with pytest.raises(NotImplementedError):
-        driver.main([*TRAIN, "--steps", "1", "--num_devices", "2"])
+    on_cards = [a if a != "cpu" else "cuda" for a in TRAIN]
+    with pytest.raises(ValueError, match="cards are visible"):
+        driver.main([*on_cards, "--steps", "1",
+                     "--num_devices", str(torch.cuda.device_count() + 1)])
     assert not (tmp_path / "refused" / "checkpoints").exists()
     (tmp_path / "host").mkdir()
     monkeypatch.chdir(tmp_path / "host")

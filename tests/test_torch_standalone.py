@@ -48,6 +48,8 @@ def test_import_leaves_jax_out():
         "import seggroup_tpu_torch.data.mesh, seggroup_tpu_torch.cli.prepare_scannet\n"
         "import seggroup_tpu_torch.cli.visualize, seggroup_tpu_torch.cli.plot_convergence\n"
         "import seggroup_tpu_torch.utils.profiling\n"
+        "import seggroup_tpu_torch.parallel, seggroup_tpu_torch.parallel.dp\n"
+        "import seggroup_tpu_torch.parallel.point_sharding\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "assert not bad, bad\n"
     )
