@@ -179,9 +179,24 @@ Phases, in order; any failure exits non-zero:
      peak memory and K1-K4 launches per rank of each path (two ranks on
      one card contend: not a scaling figure). With 2 or more cards, the
      same over NCCL across min(count, 4) cards;
+ 15f. the multichip dry run (infer.dryrun_multichip, parallel/dryrun.py:
+     the JAX package's seven data-parallel and point-sharded checks on
+     tiny shapes, one spawn): first its seven checks in this process at
+     world size 1 on the card, at a rank's shapes, with every K1, K2 and
+     K3 call held against its plain version on the same inputs, and each
+     check's loss against the same run on the CPU (DRYRUN_LOSS_RTOL);
+     then over 2 gloo ranks sharing cuda:0, its summed losses against 2
+     gloo ranks on the CPU, and with 2 or more cards over NCCL across all
+     of them: its seven lines, its wall seconds and each rank's K1-K4
+     launches over the checks; fails if a check fails (the ranks not
+     bit-equal after a check included), if a kernel disagrees with its
+     plain version, if a loss leaves its bound or if K1, K2 or K3
+     launched no time in a rank (K4 launches none: the dry run's 2 x
+     512-point clustering problem is not a multiple of 8 tiles of 256
+     rows, so it takes the exact fallback, as in the JAX package);
  16. each phase's wall seconds, a `kernels` JSON line (each kernel's
-     `launches_by_path` with every rank's launches on each DP path), the
-     card line, then the device line as the last.
+     `launches_by_path` with every rank's launches on each DP path and
+     dry run), the card line, then the device line as the last.
 
 Needs one card. Imports nothing of JAX or of the JAX package."""
 
@@ -1402,6 +1417,46 @@ class CheckedDispatch:
             by.setdefault(key[0], []).append(ratio)
         return "; ".join(f"{name} {self.calls[name]} calls over {len(r)} shapes, worst "
                          f"{max(r):.2e} of max|plain|" for name, r in sorted(by.items()))
+
+
+class CheckedFPS:
+    """While active, every K1 call (ops/fps.py's dispatch to
+    cuda_fps.masked_fps_cuda) is held against masked_fps_plain on the same
+    card inputs: the indices equal. Records the calls and their (rows, P,
+    k)."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.calls = 0
+        self.shapes: set = set()
+
+    def __enter__(self):
+        from seggroup_tpu_torch.ops import cuda_fps
+        from seggroup_tpu_torch.ops.fps import masked_fps_plain
+
+        self.saved = kernel = cuda_fps.masked_fps_cuda
+
+        def call(points, valid, k):
+            got = kernel(points, valid, k)
+            key = (points.shape[0], points.shape[1], k)
+            self.calls += 1
+            self.shapes.add(key)
+            if not self.torch.equal(got.long(), masked_fps_plain(points, valid, k).long()):
+                raise AssertionError(f"K1 (rows, P, k) = {key}: the kernel's indices differ "
+                                     f"from its plain version's")
+            return got
+
+        cuda_fps.masked_fps_cuda = call
+        return self
+
+    def __exit__(self, *exc):
+        from seggroup_tpu_torch.ops import cuda_fps
+
+        cuda_fps.masked_fps_cuda = self.saved
+
+    def summary(self) -> str:
+        return (f"K1 {self.calls} calls at (rows, P, k) {sorted(self.shapes)}, indices equal "
+                f"to the plain version's")
 
 
 def _grads_on(torch, devices, st, labels, caps, train, f32=False):
@@ -3554,6 +3609,11 @@ DP_TIMEOUT_S = 300
 # each parameter's change within 1e-4 of its largest, the running
 # statistics within 1e-5; Res16UNet14A at 2^14 rows
 DP_MEAN_ROWS, DP_MEAN_SITES = 2 ** 14, 12000
+# each dry-run check's loss card vs CPU on the same inputs and weights, as a
+# share of the CPU's: bf16 products and float32 sums in another order, and
+# the card's scatter-adds, which make runs differ. Measured on an H100 at
+# most 1.25e-4 (PointGroup over 2 ranks; 9.1e-5 MinkUNet at world size 1)
+DRYRUN_LOSS_RTOL = 1e-3
 
 
 def _dp_same_on_ranks(torch, mesh, model, what):
@@ -3798,9 +3858,8 @@ def _dp_rank(mesh):
     return out
 
 
-def _dp_world1(torch):
-    """An NCCL group of world size 1 on the card, in this process: one
-    MinkUNet DP step through it (and one to warm up)."""
+def _world1(backend, device, fn):
+    """fn(mesh) in a process group of world size 1 in this process."""
     from datetime import timedelta
 
     import torch.distributed as dist
@@ -3808,12 +3867,18 @@ def _dp_world1(torch):
     from seggroup_tpu_torch.parallel.dp import make_mesh
 
     with tempfile.TemporaryDirectory() as store:
-        dist.init_process_group("nccl", init_method=f"file://{store}/store", world_size=1,
+        dist.init_process_group(backend, init_method=f"file://{store}/store", world_size=1,
                                 rank=0, timeout=timedelta(seconds=DP_TIMEOUT_S))
         try:
-            return _dp_minkunet(torch, make_mesh("cuda"))
+            return fn(make_mesh(device))
         finally:
             dist.destroy_process_group()
+
+
+def _dp_world1(torch):
+    """An NCCL group of world size 1 on the card, in this process: one
+    MinkUNet DP step through it (and one to warm up)."""
+    return _world1("nccl", "cuda", lambda mesh: _dp_minkunet(torch, mesh))
 
 
 def _dp_line(name, transport, ranks):
@@ -3869,6 +3934,106 @@ def run_dp_paths(torch, dev, card):
             os.environ["CUBLAS_WORKSPACE_CONFIG"] = env
     runs["nccl1_minkunet"] = runs.pop("nccl1")
     return runs
+
+
+def _digest(obj, h=None) -> str:
+    """The sha256 of every array in `obj` (nested tuples, lists, dicts,
+    tensors, numpy arrays and numbers), in order."""
+    import hashlib
+
+    import torch
+
+    top = h is None
+    h = hashlib.sha256() if top else h
+    if isinstance(obj, dict):
+        for k in sorted(obj):
+            _digest(obj[k], h)
+    elif isinstance(obj, (tuple, list)):
+        for v in obj:
+            _digest(v, h)
+    elif isinstance(obj, torch.Tensor):
+        h.update(obj.cpu().contiguous().numpy().tobytes())
+    else:
+        h.update(np.ascontiguousarray(obj).tobytes())
+    return h.hexdigest()[:16] if top else ""
+
+
+def _dryrun_losses(losses, n):
+    return ", ".join(f"{c} {v:.6f}" for c, v in losses.items()) + f" (summed over {n})"
+
+
+def run_dryrun(torch, card):
+    """Phase 15f: the dry run's seven checks in this process at world size
+    1 on the card, every K1, K2 and K3 call held against its plain version
+    (CheckedFPS, CheckedDispatch) and each check's loss against the same
+    run on the CPU; then infer.dryrun_multichip over 2 gloo ranks sharing
+    cuda:0, its summed losses against dryrun_multichip(2, "cpu") on the
+    same inputs, and over NCCL across every card where there are 2 or
+    more. Returns {path: [each rank's launches over the seven checks]}."""
+    import contextlib
+    import io
+
+    from seggroup_tpu_torch.infer import dryrun_multichip
+    from seggroup_tpu_torch.parallel.dryrun import dryrun_inputs, dryrun_rank
+
+    def totals(rank):
+        return {name: sum(c[name] for c in rank["launches"].values())
+                for name in _kernel_counts()}
+
+    def held(card_losses, cpu_losses, n, what):
+        gaps = {c: abs(card_losses[c] - v) / abs(v) for c, v in cpu_losses.items()}
+        worst = max(gaps, key=gaps.get)
+        text = (f"{what}: losses on the card {_dryrun_losses(card_losses, n)}, on the CPU "
+                f"{_dryrun_losses(cpu_losses, n)}; largest gap {gaps[worst]:.3e} of the CPU's "
+                f"({worst}, bound {DRYRUN_LOSS_RTOL})")
+        if gaps[worst] > DRYRUN_LOSS_RTOL:
+            raise AssertionError(text)
+        return text
+
+    inputs = dryrun_inputs(1)
+    t0 = time.perf_counter()
+    with CheckedDispatch(torch) as checked, CheckedFPS(torch) as checked_fps:
+        world1 = _world1("nccl", "cuda", lambda mesh: dryrun_rank(mesh, inputs))
+    wall = time.perf_counter() - t0
+    cpu1 = _world1("gloo", "cpu", lambda mesh: dryrun_rank(mesh, inputs))
+    if not (checked_fps.calls and checked.calls.get("K2") and checked.calls.get("K3")):
+        raise AssertionError(f"dry run at world size 1: a kernel had no call to check "
+                             f"(K1 {checked_fps.calls}, {checked.calls})")
+    print(held(world1["losses"], cpu1["losses"], 1,
+               f"dry run in this process at world size 1 on the card, a rank's shapes, "
+               f"{wall:.1f} s: every kernel call against its plain version: "
+               f"{checked_fps.summary()}; {checked.summary()}; inputs {_digest(inputs)}")
+          + f"; on {card}", flush=True)
+    out = {"dryrun_multichip_nccl1": [totals(world1)]}
+
+    runs = [("gloo2", "2 gloo ranks sharing cuda:0", 2, "cuda:0")]
+    if torch.cuda.device_count() >= 2:
+        n = torch.cuda.device_count()
+        runs.append((f"nccl{n}", f"NCCL across {n} cards", n, "cuda"))
+    for key, transport, n, device in runs:
+        t0 = time.perf_counter()
+        ranks = dryrun_multichip(n, device)  # prints the seven lines
+        wall = time.perf_counter() - t0
+        counts = [totals(r) for r in ranks]
+        seconds = "; ".join(f"{check} {s:.4f}" for check, s in ranks[0]["seconds"].items())
+        launches = "; ".join(f"rank {d}: K1 {t['masked_fps']}, K2 {t['subm_conv']}, "
+                             f"K3 {t['subm_dw']}, K4 {t['cc_sweep']}"
+                             for d, t in enumerate(counts))
+        print(f"dry run over {transport}: {wall:.1f} s with the spawn; seconds a check on "
+              f"rank 0: {seconds}; launches over the checks: {launches}; ranks bit-equal "
+              f"after every check; inputs {_digest(dryrun_inputs(n))}; on {card}", flush=True)
+        for d, t in enumerate(counts):
+            idle = [name for name in ("masked_fps", "subm_conv", "subm_dw") if not t[name]]
+            if idle:
+                raise AssertionError(f"dry run over {transport}: rank {d} launched no "
+                                     f"{', '.join(idle)}")
+        if key == "gloo2":
+            with contextlib.redirect_stdout(io.StringIO()):  # its seven lines again
+                cpu = dryrun_multichip(n, "cpu")
+            print(held(ranks[0]["losses"], cpu[0]["losses"], n,
+                       f"dry run over {transport} against 2 gloo ranks on the CPU"), flush=True)
+        out[f"dryrun_multichip_{key}"] = counts
+    return out
 
 
 def build_all() -> None:
@@ -3972,6 +4137,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as raw_work:
         raw_scene = phase("raw scene to stage 1", run_raw_scene_path, torch, dev, card, raw_work)
     dp_runs = phase("data parallelism", run_dp_paths, torch, dev, card)
+    dryruns = phase("multichip dry run", run_dryrun, torch, card)
     print("wall seconds by phase: " + "; ".join(f"{k} {v:.2f}" for k, v in seconds.items())
           + f"; total {sum(seconds.values()):.2f}", flush=True)
 
@@ -4018,6 +4184,8 @@ def main() -> int:
         # the DP paths: a list of each rank's launches in its timed steps
         k["launches_by_path"].update({f"dp_{path}": [r[name] for r in ranks]
                                       for path, ranks in dp_runs.items()})
+        k["launches_by_path"].update({path: [r[name] for r in ranks]
+                                      for path, ranks in dryruns.items()})
     print(json.dumps({"kernels": [k1, k2, k3, k4]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,6 @@
 """Host-side helpers shared by the stage-2 CLIs: copies of the label maps
-and the scene conversion of cli/stage2_train_minkunet.py:29-56 and of
-CLASS_NAMES_20 (seggroup_tpu/utils/logging.py)."""
+and the scene conversion of cli/stage2_train_minkunet.py:29-56;
+CLASS_NAMES_20 comes from utils/logging.py, its home in the JAX package."""
 
 from __future__ import annotations
 
@@ -8,19 +8,14 @@ import os
 
 import numpy as np
 
+from seggroup_tpu_torch.utils.logging import CLASS_NAMES_20  # noqa: F401 (the CLIs' name for it)
+
 # scannet 20-class training ids from nyu40 (reference minkowski
 # lib/datasets/scannet.py VALID_CLASS_IDS / IGNORE_LABELS)
 VALID_CLASS_IDS = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 14, 16, 24, 28, 33, 34, 36, 39)
 NYU40_TO_20 = np.full(41, 255, np.int32)
 for _i, _c in enumerate(VALID_CLASS_IDS):
     NYU40_TO_20[_c] = _i
-
-CLASS_NAMES_20 = [
-    "wall", "floor", "cabinet", "bed", "chair", "sofa", "table", "door",
-    "window", "bookshelf", "picture", "counter", "desk", "curtain",
-    "refrigerator", "shower curtain", "toilet", "sink", "bathtub",
-    "otherfurniture",
-]
 
 
 def scene_to_training_tuple(scene, extras, pseudo_root, name, use_pseudo):

@@ -153,13 +153,14 @@ def make_sgd(model: torch.nn.Module, lr: float) -> tuple[torch.optim.Optimizer, 
 
 def train_step(model: KPFCNN, optimizer: torch.optim.Optimizer, scheduler: ScheduledLR,
                pyramid: list[PyramidLevel], feats: torch.Tensor, labels: torch.Tensor,
-               offset_loss_weight: float = 0.1, grad_clip_norm: float = 100.0,
+               offset_loss_weight: float = 0.1, grad_clip_norm: float | None = 100.0,
                offset_lr_scale: float = 0.1, phase_seconds: dict | None = None,
                sync: Callable[[torch.nn.Module], None] | None = None
                ) -> tuple[torch.Tensor, torch.Tensor]:
     """One step of the JAX driver's `step` on the model's device: the train
     forward (TFBatchNorm batch statistics, which move the running ones),
-    `kpconv_loss`, the backward, `transform_grads` and one SGD step.
+    `kpconv_loss`, the backward, `transform_grads` (none with
+    `grad_clip_norm` None, the JAX DP step's default) and one SGD step.
     Returns (loss, accuracy) on the device. With `phase_seconds`, the device
     is synchronised around "forward", "loss", "backward", "grad transform"
     and "optimizer", and their wall seconds are added to the dict.
@@ -178,8 +179,9 @@ def train_step(model: KPFCNN, optimizer: torch.optim.Optimizer, scheduler: Sched
         for p in model.parameters():  # jax.grad's zeros, which optax's trace counts
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-    with phase("grad transform"):
-        transform_grads(model, offset_lr_scale, grad_clip_norm)
+    if grad_clip_norm is not None:
+        with phase("grad transform"):
+            transform_grads(model, offset_lr_scale, grad_clip_norm)
     if sync is not None:
         with phase("all-reduce"):
             sync(model)
@@ -190,13 +192,13 @@ def train_step(model: KPFCNN, optimizer: torch.optim.Optimizer, scheduler: Sched
 
 
 def to_device_pyramid(pts, bids, valid, dev, dl0: float, caps: Sequence[int],
-                      nbr_caps: Sequence[int], return_overflow: bool = False):
+                      nbr_caps: int | Sequence[int], return_overflow: bool = False):
     """The driver's pyramid (5 levels at `caps` rows below level 0,
-    `nbr_caps` neighbours a level) of a host batch, on `dev`."""
+    `nbr_caps` neighbours a level, or one cap for all) of a host batch, on
+    `dev`."""
     return build_pyramid(torch.from_numpy(pts).to(dev), torch.from_numpy(bids).to(dev),
                          torch.from_numpy(valid).to(dev), KPCONV_LAYERS, dl0,
-                         level_caps=caps, neighbor_cap=list(nbr_caps),
-                         return_overflow=return_overflow)
+                         level_caps=caps, neighbor_cap=nbr_caps, return_overflow=return_overflow)
 
 
 def main(argv: Sequence[str] | None = None):

@@ -1,6 +1,7 @@
 """Stage-1 pseudo-label inference entry points.
 
-`entry` is the port's counterpart of __graft_entry__.entry(); `infer_scenes`
+`entry` and `dryrun_multichip` are the port's counterparts of
+__graft_entry__.entry() and __graft_entry__.dryrun_multichip(n); `infer_scenes`
 runs the stage-1 forward per scene and writes the reference's label-file
 layout (cli/stage1_common.py export_labels_txt / export_scene):
 results/<scene>/<mode>/{final,layer_L}.{sem,ins,seg}.txt."""
@@ -34,6 +35,31 @@ def entry(device: str | torch.device = "cuda"):
         return out.loss_sum, out.final_sem, out.iou_sem
 
     return fn, (model, scene)
+
+
+def dryrun_multichip(n_devices: int, device: str | torch.device = "cuda",
+                     backend: str | None = None) -> list[dict]:
+    """One step of each data-parallel and point-sharded path on tiny shapes
+    in `n_devices` ranks (parallel/dryrun.py has the seven checks), one
+    `launch`; prints one line a check, in the JAX function's order and
+    wording, and returns every rank's dryrun_rank result. "cuda" puts rank
+    r on card r over NCCL (fewer cards than ranks raise); "cuda:i" puts
+    every rank on card i over gloo (NCCL refuses two ranks on one card);
+    "cpu" runs gloo ranks on the CPU. `backend` overrides that choice. A
+    check that fails in a rank raises here."""
+    from seggroup_tpu_torch.parallel.dp import launch, resolve_num_devices
+    from seggroup_tpu_torch.parallel.dryrun import dryrun_inputs, dryrun_rank
+
+    dev = resolve_device(device)
+    if dev.index is None:
+        resolve_num_devices(n_devices, dev)
+    elif backend is None:
+        backend = "gloo"
+    ranks = launch(dryrun_rank, n_devices, dev, dryrun_inputs(n_devices), backend=backend,
+                   all_ranks=True)
+    for line in ranks[0]["lines"]:
+        print(line, flush=True)
+    return ranks
 
 
 def export_labels_txt(out_dir: str, stem: str, labels: np.ndarray) -> None:

@@ -333,13 +333,17 @@ def build_pointgroup_dp_step_packed(model, optimizer, scheduler, mesh: Mesh, vox
 
 
 def build_kpconv_dp_step(model, optimizer, scheduler, mesh: Mesh, dl0: float,
-                         level_caps: Sequence[int], neighbor_caps: Sequence[int],
-                         offset_loss_weight: float = 0.1, grad_clip_norm: float = 100.0,
+                         level_caps: Sequence[int], neighbor_caps: int | Sequence[int] = 32,
+                         offset_loss_weight: float = 0.1, grad_clip_norm: float | None = None,
                          offset_lr_scale: float = 0.1) -> Callable:
     """dp.py:213-272: step(pts, feats, labels, bids, valid) on this rank's
-    sphere batch (numpy), whose pyramid the rank builds on its device; the
-    per-variable gradient transform (the offset-LR scale and the clip) on
-    the LOCAL gradients, then their mean -> (summed loss, mean accuracy)."""
+    sphere batch (numpy), whose pyramid the rank builds on its device
+    (`neighbor_caps` one cap for every level or one a level) -> (summed
+    loss, mean accuracy). With `grad_clip_norm`, the trainer's
+    per-variable gradient transform (the offset-LR scale, then the clip)
+    acts on the LOCAL gradients before their mean, as the JAX step's
+    `grad_transform`; without, as by default in JAX, there is no
+    transform at all (no offset scale either)."""
     from seggroup_tpu_torch.cli.stage2_train_kpconv import to_device_pyramid, train_step
 
     def step(pts, feats, labels, bids, valid, phase_seconds=None):

@@ -138,8 +138,9 @@ def minkunet(mesh, state, wires, model_name, caps, lr, f32=False):
     return out
 
 
-def kpconv(mesh, state, batches, model_kw, dl0, caps, nbr_caps, lr, clip, offset_scale):
-    """Two build_kpconv_dp_step steps on this rank's sphere batches."""
+def kpconv(mesh, state, batches, model_kw, lr, step_kw):
+    """Two build_kpconv_dp_step(**step_kw) steps on this rank's sphere
+    batches (build_kpconv_dp_step's defaults where `step_kw` leaves them)."""
     from seggroup_tpu_torch.models.kpconv import KPFCNN
     from seggroup_tpu_torch.parallel.dp import build_kpconv_dp_step
 
@@ -147,8 +148,7 @@ def kpconv(mesh, state, batches, model_kw, dl0, caps, nbr_caps, lr, clip, offset
     model.load_state_dict(state[0] if isinstance(state, list) else state, strict=True)
     optimizer, scheduler = _sgd(model, lr)
     mesh.replicate(model, optimizer)
-    step = build_kpconv_dp_step(model, optimizer, scheduler, mesh, dl0, caps, nbr_caps,
-                                grad_clip_norm=clip, offset_lr_scale=offset_scale)
+    step = build_kpconv_dp_step(model, optimizer, scheduler, mesh, **step_kw)
     metrics, states, grads = [], [], []
     for k in range(2):
         _at(model, state, k)

@@ -14,7 +14,9 @@ had left out, against the JAX package on the CPU:
     and `score_stop_gradient` (the score loss reaches the ScoreNet and not
     the backbone);
   * pointgroup_loss's `loss_weight` and `gt_scores`: the total and its
-    parts within 1e-6 of JAX's on the same outputs."""
+    parts within 1e-6 of JAX's on the same outputs;
+  * utils/logging `format_class_iou_table` character for character, with
+    and without a NaN class, and the one CLASS_NAMES_20 the CLIs read."""
 
 import jax
 import jax.numpy as jnp
@@ -27,11 +29,15 @@ from seggroup_tpu.ops import knn as JK
 from seggroup_tpu.ops import segment_ops as JS
 from seggroup_tpu.sparse import conv as JC
 from seggroup_tpu.sparse.tensor import SparseTensor as JSparseTensor
+from seggroup_tpu.utils import logging as JL
+from seggroup_tpu_torch.cli import stage2_common
 from seggroup_tpu_torch.models import pointgroup as TP
 from seggroup_tpu_torch.models.convert import pointgroup_params_from_flax
 from seggroup_tpu_torch.ops import knn as TK
 from seggroup_tpu_torch.ops import segment_ops as TS
 from seggroup_tpu_torch.sparse import conv as TC
+from seggroup_tpu_torch.utils import format_class_iou_table
+from seggroup_tpu_torch.utils import logging as TL
 
 torch.set_num_threads(1)
 
@@ -194,3 +200,19 @@ def test_pointgroup_loss_weights_and_given_targets_match_jax():
         assert set(t_aux) == set(j_aux)
         for k in j_aux:
             np.testing.assert_allclose(t_aux[k].item(), float(j_aux[k]), rtol=1e-6, err_msg=k)
+
+
+@pytest.mark.parametrize("nan_class", [None, 7])
+def test_format_class_iou_table(nan_class):
+    rng = np.random.default_rng(3)
+    iou_sem = rng.random(20)
+    iou_ins = rng.random(18)
+    if nan_class is not None:  # a class absent from the scenes: nan in both columns
+        iou_sem[nan_class] = np.nan
+        iou_ins[nan_class - 2] = np.nan
+    acc_sem, acc_ins = float(rng.random()), float(rng.random())
+    want = JL.format_class_iou_table(iou_sem, iou_ins, acc_sem, acc_ins)
+    assert TL.format_class_iou_table(iou_sem, iou_ins, acc_sem, acc_ins) == want
+    assert format_class_iou_table is TL.format_class_iou_table
+    assert TL.CLASS_NAMES_20 == JL.CLASS_NAMES_20
+    assert stage2_common.CLASS_NAMES_20 is TL.CLASS_NAMES_20

@@ -192,8 +192,7 @@ def test_kpconv_dp_step_matches_jax(tmp_path):
     # the JAX step's argument order: pts, feats, labels, bids, valid (as the batches)
     afters, losses = _run_jax(lambda k: step, variables, opt, batches, kpconv_params_from_flax)
     befores = [kpconv_params_from_flax(variables), afters[0]]
-    port = _spawn(ranks.kpconv, tmp_path, befores, batches, config, KPT.KP["dl0"], KPT.CAPS,
-                  KPT.NBR_CAPS, KPT.LR, KPT.CLIP, KPT.OFFSET_SCALE)
+    port = _spawn(ranks.kpconv, tmp_path, befores, batches, config, KPT.LR, KPT.STEP_KW)
     _hold(port, befores, afters, losses)
 
 
