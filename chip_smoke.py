@@ -319,6 +319,13 @@ KP_OFFSET_STD = 0.05
 KP_LOGIT_RTOL = 1e-4
 
 
+def phases_of(seconds: dict) -> dict:
+    """The disjoint phases of a `phase_seconds` dict: its keys without a
+    dot. The recorder's dotted keys (utils/profiling.py) nest inside a
+    phase, run on another thread or count, so a sum adds them twice."""
+    return {k: v for k, v in seconds.items() if "." not in k}
+
+
 def machine_id(torch) -> str:
     """What tells one machine from another beside a host-bound time: the
     host's name and the card's UUID."""
@@ -510,8 +517,8 @@ def run_main_path(torch, dev, card):
 
     per_scene = wall / N_SCENES
     forward = (wall - phases.get("export", 0.0)) / N_SCENES
-    rest = forward - sum(v for k, v in phases.items() if k != "export") / N_SCENES
-    split = ", ".join(f"{k} {v / N_SCENES:.3f} s" for k, v in sorted(phases.items()))
+    rest = forward - sum(v for k, v in phases_of(phases).items() if k != "export") / N_SCENES
+    split = ", ".join(f"{k} {v / N_SCENES:.3f} s" for k, v in sorted(phases_of(phases).items()))
     print(f"stage-1 ins_infer at {n} points, {BENCH_SCENE['num_slots']} slots, "
           f"{BENCH_SCENE['num_edges']} edges (bf16): {per_scene:.3f} s/scene with the "
           f"label export, forward {forward:.3f} s/scene = {n / forward:.1f} points/s; "
@@ -603,8 +610,8 @@ def run_stage1_fast_path(torch, dev, card):
         t0 = time.perf_counter()
         model(scenes[0], mode="ins_infer", phase_seconds=phases)
         torch.cuda.synchronize()
-        rest = time.perf_counter() - t0 - sum(phases.values())
-        splits[name] = ", ".join(f"{k} {v:.4f} s" for k, v in sorted(phases.items())
+        rest = time.perf_counter() - t0 - sum(phases_of(phases).values())
+        splits[name] = ", ".join(f"{k} {v:.4f} s" for k, v in sorted(phases_of(phases).items())
                                  ) + f", rest {rest:.4f} s"
     # each ins_infer forward groups 3 times, each grouping in 2 passes
     passes = 2 * 3 * N_SCENES
@@ -1325,7 +1332,7 @@ def run_train_path(torch, dev, card):
     if len(moved) != len(stats0):
         raise AssertionError(f"BatchNorm running statistics did not move: "
                              f"{sorted(set(stats0) - set(moved))[:5]}")
-    split = ", ".join(f"{k} {v / TRAIN_FENCED:.4f} s" for k, v in phases.items())
+    split = ", ".join(f"{k} {v / TRAIN_FENCED:.4f} s" for k, v in phases_of(phases).items())
     print(f"stage-2 Res16UNet34C training, capacity {CAPACITY}, batch size {TRAIN_BATCH} "
           f"from {TRAIN_POOL} bench-size scenes ({BENCH_SCENE['num_points']} points), SGD lr "
           f"0.1 PolyLR, augmented: {wall / TRAIN_STEPS:.4f} s/step over {TRAIN_STEPS} steps, "
@@ -2537,7 +2544,7 @@ def run_kpconv_path(torch, dev, card):
                                  f"{rec['logits_finite']}")
     spheres = [rec["spheres"] for rec in log]
     over = np.mean([rec["overflow"] for rec in log], axis=0)
-    split = ", ".join(f"{k} {v / KP_SCENES:.4f} s" for k, v in sorted(phases.items()))
+    split = ", ".join(f"{k} {v / KP_SCENES:.4f} s" for k, v in sorted(phases_of(phases).items()))
     print(f"KPConv semantic inference (KPFCNN, first_features_dim {KP_FDIM}, dl0 {KP_DL0}, "
           f"point_cap {KP_POINT_CAP}, in_radius {KP_RADIUS}, {KP_VOTES} votes) over "
           f"{KP_SCENES} scenes of {BENCH_SCENE['num_points']} points: {wall / KP_SCENES:.4f} "
@@ -2983,7 +2990,7 @@ def run_demo_path(torch, dev, card):
             written = len(read_ply(out)["vertex"])
             line = (f"demo_semantic {label} on a bench scene ({len(pts)} points, {kept} kept "
                     f"at capacity {CAPACITY}): {wall:.3f} s a run, fenced "
-                    + ", ".join(f"{k} {v:.4f} s" for k, v in phases.items())
+                    + ", ".join(f"{k} {v:.4f} s" for k, v in phases_of(phases).items())
                     + f"; kernel launches {counts}; peak {peak:.2f} GiB; {written} vertices "
                     f"written; on {card}")
             if written != kept or len(lab) != kept:

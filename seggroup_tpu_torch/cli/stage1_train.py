@@ -60,11 +60,14 @@ def train_step(model: SegGroupGNN, optimizer: torch.optim.Optimizer, scene: Scen
     `iou_ins` and `acc`, and the sizes that decide whether a budget bound
     (`max_segment_size`, `max_cluster_size`), all on the device. With
     `phase_seconds`, the device is synchronised around "forward",
-    "backward" and "optimizer", and the forward adds its own phases
-    (SegGroupGNN.forward). `sync(model)`, where given, runs between the
+    "backward" and "optimizer", and the forward adds its own phases and
+    counters (SegGroupGNN.forward); every phase's entries go under
+    "count.<phase>", and the process's recorder stays bound to the dict
+    (utils/profiling.py). `sync(model)`, where given, runs between the
     backward and the optimizer (parallel/dp.py `Mesh.sync`: the ranks'
     mean of the gradients and the running statistics), timed as
-    "all-reduce"."""
+    "all-reduce", inside which Mesh.sync adds "all-reduce.wait" (the wait
+    for the slowest rank) and "all-reduce.transfer"."""
     phase = PhaseClock(model.device, phase_seconds)
     with phase("forward"):
         out = model(scene, mode="train", phase_seconds=phase_seconds,

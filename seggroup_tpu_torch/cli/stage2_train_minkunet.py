@@ -69,6 +69,7 @@ from seggroup_tpu_torch.sparse.device_plan import (build_unet_plan_device, pack_
                                                    unpack_voxel_batch)
 from seggroup_tpu_torch.sparse.plan import build_unet_plan, plan_to_device
 from seggroup_tpu_torch.sparse.tensor import SparseTensor
+from seggroup_tpu_torch.utils import profiling
 from seggroup_tpu_torch.utils.checkpoint import CheckpointManager, lenient_restore
 from seggroup_tpu_torch.utils.logging import IOStream
 from seggroup_tpu_torch.utils.prefetch import HostPrefetcher
@@ -98,9 +99,13 @@ def train_step(model: MinkUNet, optimizer: torch.optim.Optimizer, scheduler: Sch
     Returns (loss, confusion matrix of the step's argmax over valid rows),
     both on the device, so nothing waits for it. With `phase_seconds`, the
     device is synchronised around "forward", "backward" and "optimizer",
-    and their wall seconds are added to the dict. `sync(model)`, where
-    given, runs between the backward and the optimizer (parallel/dp.py
-    `Mesh.sync`), timed as "all-reduce"."""
+    their wall seconds are added to the dict and their entries under
+    "count.<phase>", and the process's recorder is bound to the dict
+    (utils/profiling.py): from then on batch_on_device adds the phase
+    "plan", the HostPrefetcher "prefetch_wait" and, on its threads,
+    "prefetch.make". `sync(model)`, where given, runs between the backward
+    and the optimizer (parallel/dp.py `Mesh.sync`, which adds
+    "all-reduce.wait" and "all-reduce.transfer"), timed as "all-reduce"."""
     phase = PhaseClock(st.coords.device, phase_seconds)
     with phase("forward"):
         # the nets without plans (ResUNet, MinkUNetHyper) take none
@@ -157,13 +162,15 @@ def batch_on_device(batch, plan, dev: torch.device, caps: Sequence[int]
     """(st, labels, plan) on `dev` of what `make_batch` returned: the wire
     unpacked (float16 features made float32) and its plan built on `dev`
     (`build_unet_plan_device`), or the float32 batch and its host plan
-    moved to `dev`."""
-    if plan is None:
-        st, labels = unpack_voxel_batch(*batch, device=dev)
-        return st, labels, build_unet_plan_device(st.coords, st.num, tuple(caps),
-                                                  with_windows=False)
-    st, labels = batch_to_device(batch, dev)
-    return st, labels, plan_to_device(plan, dev)
+    moved to `dev`. While the recorder is bound (utils/profiling.py), timed
+    as the phase "plan", fenced like train_step's phases."""
+    with profiling.span("plan", fence=dev):
+        if plan is None:
+            st, labels = unpack_voxel_batch(*batch, device=dev)
+            return st, labels, build_unet_plan_device(st.coords, st.num, tuple(caps),
+                                                      with_windows=False)
+        st, labels = batch_to_device(batch, dev)
+        return st, labels, plan_to_device(plan, dev)
 
 
 def main(argv: Sequence[str] | None = None):

@@ -3,10 +3,10 @@
 from __future__ import annotations
 
 import subprocess
-import time
-from contextlib import contextmanager
 
 import torch
+
+from seggroup_tpu_torch.utils import profiling
 
 
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:
@@ -37,24 +37,21 @@ def card_description() -> str:
 
 
 class PhaseClock:
-    """Adds the wall seconds of named phases to a dict, synchronising the
-    device around each; does nothing without a dict."""
+    """The phases of a call handed `phase_seconds`: `clock(name)` is the
+    recorder's span `name` fenced by a synchronisation of `device` on both
+    sides (utils/profiling.py; `device` None fences nothing). Handed a dict,
+    the clock binds the process's recorder to it, and each phase adds its
+    wall seconds to it under `name` and its entries under "count.<name>".
+    Handed None, the call asked for no phases: the clock records nothing and
+    only names its phases' regions while torch.profiler records."""
 
-    def __init__(self, device: torch.device, sink: dict | None):
+    def __init__(self, device: torch.device | None, sink: dict | None):
         self.device = device
         self.sink = sink
+        if sink is not None:
+            profiling.bind(sink)
 
-    def _sync(self):
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-
-    @contextmanager
     def __call__(self, name: str):
         if self.sink is None:
-            yield
-            return
-        self._sync()
-        t0 = time.perf_counter()
-        yield
-        self._sync()
-        self.sink[name] = self.sink.get(name, 0.0) + time.perf_counter() - t0
+            return profiling.region(name)
+        return profiling.span(name, fence=self.device)

@@ -9,16 +9,16 @@ results/<scene>/<mode>/{final,layer_L}.{sem,ins,seg}.txt."""
 from __future__ import annotations
 
 import os
-import time
 from collections.abc import Sequence
 
 import numpy as np
 import torch
 
 from seggroup_tpu_torch.data.synthetic import make_synthetic_scene
-from seggroup_tpu_torch.device import resolve_device
+from seggroup_tpu_torch.device import PhaseClock, resolve_device
 from seggroup_tpu_torch.models.seggroup import SegGroupGNN, Stage1Output
 from seggroup_tpu_torch.types import Scene
+from seggroup_tpu_torch.utils import profiling
 
 
 def entry(device: str | torch.device = "cuda"):
@@ -63,10 +63,14 @@ def dryrun_multichip(n_devices: int, device: str | torch.device = "cuda",
 
 
 def export_labels_txt(out_dir: str, stem: str, labels: np.ndarray) -> None:
-    os.makedirs(out_dir, exist_ok=True)
-    body = "\n".join(map(str, np.asarray(labels, np.int64).tolist()))
-    with open(os.path.join(out_dir, stem + ".txt"), "w") as f:
-        f.write(body + "\n")
+    """One label a line into out_dir/<stem>.txt; the recorder's spans
+    "export.format" (the labels into text) and "export.write" (the file)."""
+    with profiling.span("export.format"):
+        body = "\n".join(map(str, np.asarray(labels, np.int64).tolist())) + "\n"
+    with profiling.span("export.write"):
+        os.makedirs(out_dir, exist_ok=True)
+        with open(os.path.join(out_dir, stem + ".txt"), "w") as f:
+            f.write(body)
 
 
 def export_scene(results_root: str, scene_name: str, stage: str,
@@ -79,7 +83,7 @@ def export_scene(results_root: str, scene_name: str, stage: str,
     unmap = (extras or {}).get("unmap")
 
     def host(t):
-        arr = t.cpu().numpy()
+        arr = profiling.to_host(t).numpy()
         return arr if unmap is None else arr[unmap]
 
     export_labels_txt(out_dir, "final.sem", host(out.final_sem))
@@ -103,16 +107,17 @@ def infer_scenes(
     `results_root`, write each scene's labels under
     results_root/<name>/<mode>/, names defaulting to scene_0000, ...
     `phase_seconds` is passed to the forward (see SegGroupGNN.forward), and
-    the export's wall seconds are added to it under "export"."""
+    the export's wall seconds, unfenced, are added to it under "export";
+    inside the export the recorder adds "export.format" and "export.write"
+    (export_labels_txt, 15 of each a scene) and its reads of the card to
+    "host.read" (utils/profiling.py), each with its "count." key."""
     outs = []
+    clock = PhaseClock(None, phase_seconds)
     for i, scene in enumerate(scenes):
         out = model(scene.to(model.device), mode=mode, phase_seconds=phase_seconds)
         if results_root is not None:
             name = names[i] if names is not None else f"scene_{i:04d}"
-            t0 = time.perf_counter()
-            export_scene(results_root, name, mode, out)
-            if phase_seconds is not None:
-                phase_seconds["export"] = (phase_seconds.get("export", 0.0)
-                                           + time.perf_counter() - t0)
+            with clock("export"):
+                export_scene(results_root, name, mode, out)
         outs.append(out)
     return outs

@@ -35,6 +35,7 @@ exports add +1 so 0 means unannotated."""
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
@@ -304,8 +305,9 @@ def cluster_pointclouds(
     i = torch.arange(cap, dtype=torch.int32, device=dev)[None, :]
     cnt = torch.clamp(count, min=1)[:, None]
     # a device tensor divisor: division by a Python scalar multiplies by its
-    # rounded reciprocal on the card
-    cap_f = torch.tensor(float(cap), device=dev)
+    # rounded reciprocal on the card; filled there, as a copy from the host
+    # would synchronise the card
+    cap_f = torch.full((), float(cap), device=dev)
     strided = (i.to(torch.float32) * cnt / cap_f).to(torch.int32)
     pos_in = torch.where(cnt <= cap, torch.minimum(i, cnt - 1), strided)
     members = order[torch.clamp(start[:, None] + pos_in, 0, n - 1)]  # (S, cap)
@@ -438,7 +440,12 @@ class SegGroupGNN(nn.Module):
         of the loss, elsewhere none. With `phase_seconds`, the card is
         synchronised around the grouping loops, the cluster kNN and the
         cluster clouds, and their wall seconds are added to the dict under
-        "grouping", "cluster_knn" and "cluster_pointclouds". `dropout_keep`
+        "grouping", "cluster_knn" and "cluster_pointclouds" (their entries
+        under "count.<phase>"); the dict binds the process's recorder
+        (utils/profiling.py), which adds the host's reads of the card under
+        "host.read" (seconds blocked, unfenced; their number under
+        "count.host.read") and the grouping's union steps under
+        "count.unions". `dropout_keep`
         ((max_instances, 128) bool) or `generator` decide the classifier's
         dropout in `train` mode (Classifier)."""
         if mode not in ("train", "ins_infer", "sem_infer"):
@@ -614,6 +621,14 @@ class SegGroupGNN(nn.Module):
         return sem.to(torch.int32), ins.to(torch.int32)
 
 
+@functools.cache
+def _valid_class_ids(dev: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """SEM_VALID_CLASS_IDS and INS_VALID_CLASS_IDS on `dev`, copied there
+    once: a copy from the host synchronises the card."""
+    return (torch.tensor(SEM_VALID_CLASS_IDS, device=dev),
+            torch.tensor(INS_VALID_CLASS_IDS, device=dev))
+
+
 def evaluate_labels(
     sem_pred: torch.Tensor,
     ins_pred: torch.Tensor,
@@ -670,8 +685,9 @@ def evaluate_labels(
 
     sem_ok = sem_pred == sem_true
     ins_ok = ins_pred == ins_true
-    sem_sel = valid & torch.isin(sem_true, torch.tensor(SEM_VALID_CLASS_IDS, device=dev))
-    ins_sel = valid & torch.isin(ins_true, torch.tensor(INS_VALID_CLASS_IDS, device=dev))
+    sem_ids, ins_ids = _valid_class_ids(dev)
+    sem_sel = valid & torch.isin(sem_true, sem_ids)
+    ins_sel = valid & torch.isin(ins_true, ins_ids)
     acc = torch.stack([share(sem_ok, valid), share(ins_ok, valid),
                        share(sem_ok, sem_sel), share(ins_ok, ins_sel)])
     return iou_sem, iou_ins, acc

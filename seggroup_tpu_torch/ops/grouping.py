@@ -5,8 +5,12 @@ slot and is kept fully compressed, so find() is one gather. Edges live in E
 slots with a validity mask, sorted by (root_lo, root_hi). A union is a
 masked vector update, and each sequential pass of the reference
 (`lax.scan` / `lax.while_loop` on the JAX side) is a Python loop of such
-updates here, with no host read inside a step: the host reads one value per
-pass or branch.
+updates here. Each union step indexes by 0-d card tensors, which
+Tensor.__getitem__ reads to the host by itself (`_UNION_READS` a step);
+beside those the host reads one value per pass or branch. The reads go
+through utils/profiling.py (`to_host`, `nonzero`; the union loops' own are
+counted by `implicit_reads`), which, where bound, also counts the union
+steps each pass launches ("count.unions", from the lengths the host holds).
 
 Where a JAX scan step is a no-op for a reason fixed before the scan starts
 (an edge that is not eligible, a slot that is not an unlabeled live root),
@@ -33,6 +37,7 @@ import torch
 
 from seggroup_tpu_torch.ops.fma import dot_fma
 from seggroup_tpu_torch.ops.segment_ops import segment_max, segment_mean, segment_min, segment_sum
+from seggroup_tpu_torch.utils import profiling
 
 __all__ = [
     "SegGraph",
@@ -100,6 +105,12 @@ def init_graph(point2seg: torch.Tensor, weak_ins: torch.Tensor,
 # ---------------------------------------------------------------------------
 # unions
 # ---------------------------------------------------------------------------
+
+# reads of the card that Tensor.__getitem__ makes by itself, as an index by a
+# 0-d card tensor calls its .item(): _union's five (ins_label, point_num and
+# sem_label at r1; ins_label and sem_label at r2), counted by the loops that
+# call it (profiling.implicit_reads)
+_UNION_READS = 5
 
 
 def _union(g: SegGraph, r1: torch.Tensor, r2: torch.Tensor,
@@ -254,7 +265,7 @@ def _constrained_merge_rounds(g: SegGraph, edges: torch.Tensor, eligible_fn) -> 
                                         "amin", include_self=True)
             new = torch.minimum(root, prop[root.long()])
             new = torch.minimum(new, new[new.long()])  # pointer jumping
-            if not bool(torch.any(new != root)):
+            if not bool(profiling.to_host(torch.any(new != root))):
                 return new
             root = new
 
@@ -268,7 +279,7 @@ def _constrained_merge_rounds(g: SegGraph, edges: torch.Tensor, eligible_fn) -> 
         has = choice < big
         mapping = torch.where(has, lab[torch.clamp(choice, max=big - 1).long()], slots)
         new = mapping[root.long()]
-        return new, bool(torch.any(new != root))
+        return new, bool(profiling.to_host(torch.any(new != root)))
 
     root = g.root
     changed = True
@@ -322,9 +333,12 @@ def group_nearby_clusters_sequential(
     Returns (graph, connected_mask over edges)."""
     eligible = edge_valid & (dists <= th)
     always = torch.ones((), dtype=torch.bool, device=edges.device)
-    for e in edges[torch.nonzero(eligible)[:, 0]]:
-        r = g.root[e]
-        g = _union(g, r[0], r[1], always)
+    todo = profiling.nonzero(eligible)[:, 0]
+    profiling.count("unions", todo.shape[0])
+    with profiling.implicit_reads(_UNION_READS * todo.shape[0], todo):
+        for e in edges[todo]:
+            r = g.root[e]
+            g = _union(g, r[0], r[1], always)
     g = absorb_small_clusters(g, edges, edge_valid, min_points)
     connected = edge_valid & (g.root[edges[:, 0]] == g.root[edges[:, 1]])
     return g, connected
@@ -345,15 +359,17 @@ def absorb_small_clusters(g: SegGraph, edges: torch.Tensor,
     r1 = g.root[edges[:, 1].clamp(0, s - 1)]
     touch = edge_valid & ((g.point_num[r0] < min_points)
                           | (g.point_num[r1] < min_points))
-    touching = edges[torch.nonzero(touch)[:, 0]]
+    touching = edges[profiling.nonzero(touch)[:, 0]]
     merged = touching.shape[0] > 0
     while merged:
         before = g.root
-        for e in touching:
-            r = g.root[e]
-            small = torch.any(g.point_num[r] < min_points)
-            g = _union(g, r[0], r[1], small)
-        merged = bool(torch.any(g.root != before))
+        profiling.count("unions", touching.shape[0])
+        with profiling.implicit_reads(_UNION_READS * touching.shape[0], touching):
+            for e in touching:
+                r = g.root[e]
+                small = torch.any(g.point_num[r] < min_points)
+                g = _union(g, r[0], r[1], small)
+        merged = bool(profiling.to_host(torch.any(g.root != before)))
     return g
 
 
@@ -379,20 +395,25 @@ def group_unlabeled_clusters(
 
     while True:
         act = active_mask(g)
-        before = int(act.sum())
+        before = int(profiling.to_host(act.sum()))
         dists = edge_distances(feat, g, edges)
         dmat = build_distance_matrix(dists, edges, edge_valid, s)
         # emulate compact-space argmin: inactive columns lose to active
         # DIST_DEFAULT columns; ties resolve to the smallest slot
         col_pen = torch.where(act, 0.0, 1e9)[None, :]
         target = torch.argmin(dmat + col_pen, dim=-1)
-        for slot in torch.nonzero(act & (g.ins_label == -1))[:, 0]:
-            r1 = g.root[slot]
-            g = _union(g, r1, g.root[target[slot]], g.ins_label[r1] == -1)
+        todo = profiling.nonzero(act & (g.ins_label == -1))[:, 0]
+        profiling.count("unions", todo.shape[0])
+        # and four of its own a slot: g.root[slot], target[slot], g.root at
+        # it, g.ins_label[r1]
+        with profiling.implicit_reads((_UNION_READS + 4) * todo.shape[0], todo):
+            for slot in todo:
+                r1 = g.root[slot]
+                g = _union(g, r1, g.root[target[slot]], g.ins_label[r1] == -1)
         feat = aggregate_cluster_feature(feat, g, act)
         edges, edge_valid = normalize_edges(g, edges, edge_valid)
         # stop when a full round leaves the cluster count unchanged
-        if int(active_mask(g).sum()) == before:
+        if int(profiling.to_host(active_mask(g).sum())) == before:
             break
 
     # ---- spatial fallback for clusters with no labeled adjacency path ----
@@ -413,15 +434,19 @@ def group_unlabeled_clusters(
         upd = segment_min(d.T, point2root[p0:p0 + blk], s, fill_value=1e30).T
         dmat_sp = torch.minimum(dmat_sp, upd)
 
-    straggler = torch.nonzero(act & (g.ins_label == -1))[:, 0]
-    for slot in straggler:
-        r1 = g.root[slot]
-        # nearest snapshot cluster whose live root is labeled
-        eligible = act & (g.ins_label[g.root] != -1) & (slots != slot)
-        d = torch.where(eligible, dmat_sp[slot], 1e30)
-        j = torch.argmin(d)
-        ok = (g.ins_label[r1] == -1) & (d[j] < 1e30)
-        g = _union(g, r1, g.root[j], ok)
+    straggler = profiling.nonzero(act & (g.ins_label == -1))[:, 0]
+    profiling.count("unions", straggler.shape[0])
+    # and five of its own a straggler: g.root[slot], dmat_sp[slot],
+    # g.ins_label[r1], d[j], g.root[j]
+    with profiling.implicit_reads((_UNION_READS + 5) * straggler.shape[0], straggler):
+        for slot in straggler:
+            r1 = g.root[slot]
+            # nearest snapshot cluster whose live root is labeled
+            eligible = act & (g.ins_label[g.root] != -1) & (slots != slot)
+            d = torch.where(eligible, dmat_sp[slot], 1e30)
+            j = torch.argmin(d)
+            ok = (g.ins_label[r1] == -1) & (d[j] < 1e30)
+            g = _union(g, r1, g.root[j], ok)
     if straggler.shape[0]:
         feat = aggregate_cluster_feature(feat, g, act)
     edges, edge_valid = normalize_edges(g, edges, edge_valid)

@@ -26,6 +26,7 @@ import torch
 
 from seggroup_tpu_torch.ops.fma import dot_fma, sqdist_fma
 from seggroup_tpu_torch.ops.segment_ops import invert_permutation
+from seggroup_tpu_torch.utils import profiling
 
 __all__ = [
     "pairwise_sqdist",
@@ -54,8 +55,9 @@ def morton3d(points: torch.Tensor, valid: torch.Tensor | None = None,
         big = 3e38
         lo = torch.where(valid[:, None], points, big).min(dim=0).values
         hi = torch.where(valid[:, None], points, -big).max(dim=0).values
-    # a tensor numerator: `float / tensor` multiplies by a rounded reciprocal
-    scale = lo.new_tensor(2.0 ** bits - 1.0) / torch.clamp(hi - lo, min=1e-9)
+    # a tensor numerator: `float / tensor` multiplies by a rounded reciprocal;
+    # filled on the device, as a copy from the host would synchronise it
+    scale = lo.new_full((), 2.0 ** bits - 1.0) / torch.clamp(hi - lo, min=1e-9)
     q = torch.clamp((points - lo) * scale, 0, 2.0 ** bits - 1).to(torch.int32)
 
     def spread(x):
@@ -182,7 +184,7 @@ def cluster_knn(
     knn_sorted = torch.empty((n, k), dtype=torch.int64, device=dev)
     rows_off = torch.arange(row_block, device=dev)
     for tier, (w0_all, width) in enumerate(tiers):
-        blocks = torch.nonzero(fits if tier else ~fits)[:, 0]
+        blocks = profiling.nonzero(fits if tier else ~fits)[:, 0]
         per_batch = max(1, (1 << 26) // (row_block * width))
         for b0 in range(0, blocks.shape[0], per_batch):
             bl = blocks[b0:b0 + per_batch]

@@ -45,6 +45,8 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
+from seggroup_tpu_torch.utils import profiling
+
 # a collective that waits longer than this fails instead of hanging
 DEFAULT_TIMEOUT = timedelta(seconds=1800)
 
@@ -141,11 +143,23 @@ class Mesh:
     def sync(self, model: nn.Module) -> None:
         """After the backward: every parameter's gradient (zeros where
         there is none) and every floating buffer replaced by its mean over
-        the ranks, in one all-reduce (float32 throughout)."""
+        the ranks, in one all-reduce (float32 throughout).
+
+        While the recorder is bound (utils/profiling.py; the trainers bind
+        it to their `phase_seconds`), the ranks first meet at a barrier of
+        the host group, timed as "all-reduce.wait": after the trainer's
+        fence of its "all-reduce" phase, the wait for the slowest rank's
+        backward. The all-reduce is then timed as "all-reduce.transfer",
+        fenced. Every rank of the mesh has to be bound alike, or the
+        barrier waits for a rank that never comes."""
         params = list(model.parameters())
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
         bufs = [b for b in model.buffers() if b.is_floating_point()]
-        means = self.all_reduce(grads + bufs, mean=True)
+        if profiling.bound():
+            with profiling.span("all-reduce.wait"):
+                self.barrier()
+        with profiling.span("all-reduce.transfer", fence=self.device):
+            means = self.all_reduce(grads + bufs, mean=True)
         for p, g in zip(params, means):
             p.grad = g
         with torch.no_grad():

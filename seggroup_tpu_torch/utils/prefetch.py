@@ -13,11 +13,16 @@ import queue
 import threading
 from typing import Callable, Iterator
 
+from seggroup_tpu_torch.utils import profiling
+
 
 class HostPrefetcher:
     """Runs `factory(step) -> batch` on `workers` daemon threads, `depth`
     batches ahead. Batches are yielded in step order. Exceptions in the
-    factory propagate to the consumer on the next __next__."""
+    factory propagate to the consumer on the next __next__. The recorder
+    (utils/profiling.py), while bound, times each batch a thread makes as
+    "prefetch.make" and each wait of the consumer for its next batch as
+    "prefetch_wait"."""
 
     def __init__(self, factory: Callable[[int], object], depth: int = 2,
                  workers: int = 1, start: int = 0):
@@ -46,7 +51,8 @@ class HostPrefetcher:
             if step is None or self._stop:
                 return
             try:
-                result = (None, self._factory(step))
+                with profiling.span("prefetch.make"):
+                    result = (None, self._factory(step))
             except BaseException as e:  # propagate to consumer
                 result = (e, None)
             with self._lock:
@@ -57,7 +63,7 @@ class HostPrefetcher:
         return self
 
     def __next__(self):
-        with self._lock:
+        with profiling.span("prefetch_wait"), self._lock:
             while self._next_out not in self._done:
                 self._lock.wait()
             err, batch = self._done.pop(self._next_out)

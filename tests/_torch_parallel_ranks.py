@@ -241,3 +241,27 @@ def as_numpy(tree):
     if torch.is_tensor(tree):
         return tree.detach().cpu().numpy()
     return np.asarray(tree)
+
+
+def stage1_timed(mesh, scene_kw, seeds, steps, delay):
+    """`steps` stage-1 data-parallel train steps (build_stage1_train_step,
+    Adam), each handed a phase dict of its own, rank 1 sleeping `delay`
+    seconds before each; returns the rank's dicts."""
+    import time
+
+    from seggroup_tpu_torch.models.seggroup import SegGroupGNN
+    from seggroup_tpu_torch.parallel.dp import build_stage1_train_step
+
+    model = SegGroupGNN(cluster_cap=256, device=mesh.device, seed=0)
+    optimizer, _ = make_optimizer("Adam", model.parameters(), make_schedule("constant", 1e-3))
+    mesh.replicate(model, optimizer)
+    step = build_stage1_train_step(model, optimizer, mesh)
+    scene = make_synthetic_scene(seed=seeds[mesh.rank], **scene_kw).to(mesh.device)
+    step(scene)  # the first step's one-time costs stay out of the dicts
+    out = []
+    for _ in range(steps):
+        if mesh.rank == 1:
+            time.sleep(delay)
+        out.append({})
+        step(scene, phase_seconds=out[-1])
+    return out

@@ -6,8 +6,7 @@ duplicated-segments case too), `prepare_scene` in every label style the
 JAX CLI offers and through its resampling, unmap and segment-overflow
 branches, `rasterize_mesh`, and `prepare_scannet`'s npz files (process
 pool and rasterisation included), all exactly equal; `visualize` writes
-the JAX package's PLY bytes, `plot_convergence` its CSV and PNG; and
-utils/profiling's meters and trace."""
+the JAX package's PLY bytes, `plot_convergence` its CSV and PNG."""
 
 import json
 import os
@@ -22,7 +21,6 @@ from seggroup_tpu.data import visualize as JV
 from seggroup_tpu_torch.cli import plot_convergence, prepare_scannet, visualize
 from seggroup_tpu_torch.data import mesh as TM
 from seggroup_tpu_torch.data import scannet as TS
-from seggroup_tpu_torch.utils import profiling
 
 from test_prepare_scannet import make_raw_scene, write_tsv
 
@@ -180,19 +178,3 @@ def test_plot_convergence_writes_csv_and_png(tmp_path, capsys):
     rows = (tmp_path / "c.csv").read_text().splitlines()
     assert rows[0] == "step,loss,running_miou" and len(rows) == 31
     assert (tmp_path / "c.png").stat().st_size > 1000
-
-
-def test_profiling_meters_and_trace(tmp_path):
-    import torch
-
-    meter = profiling.AverageMeter()
-    for v in (1.0, 2.0, 6.0):
-        meter.update(v)
-    assert meter.avg == 3.0 and meter.val == 6.0
-    timer = profiling.Timer()
-    assert timer.toc() >= 0.0
-    with profiling.device_trace(str(tmp_path / "trace")) as prof:
-        with profiling.annotate("matmul_region"):
-            torch.ones(64, 64) @ torch.ones(64, 64)
-    assert "matmul_region" in {e.key for e in prof.key_averages()}
-    assert "matmul_region" in (tmp_path / "trace" / "trace.json").read_text()
