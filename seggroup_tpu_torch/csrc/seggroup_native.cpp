@@ -1,6 +1,7 @@
 // Host-side native code of the port's data pipeline and plan builders: a
 // copy of seggroup_tpu/csrc/seggroup_native.cpp, the same functions with the
-// same results, bound by seggroup_tpu_torch/native.py.
+// same results, bound by seggroup_tpu_torch/native.py, and one function of
+// the port's own, format_int_lines (the label files' text).
 //
 // C++ counterparts of the reference's native preprocessing stack: grid
 // subsampling (reference kpconv/cpp_wrappers/cpp_subsampling/
@@ -555,6 +556,31 @@ void connected_components_uf(const int32_t* edges, int64_t ne, int64_t n,
         if (ra != rb) parent[ra < rb ? rb : ra] = ra < rb ? ra : rb;
     }
     for (int64_t i = 0; i < n; ++i) labels[i] = find((int32_t)i);
+}
+
+// One decimal integer a line, each line ended by '\n': the bytes of
+// Python's "\n".join(map(str, v)) + "\n" ("\n" for n = 0). out must hold
+// 21 * n + 1 chars (20 for the widest int64, INT64_MIN, and the newline).
+// Returns the number written.
+int64_t format_int_lines(const int64_t* v, int64_t n, char* out) {
+    char* p = out;
+    if (n == 0) *p++ = '\n';
+    for (int64_t i = 0; i < n; ++i) {
+        uint64_t u = (uint64_t)v[i];
+        if (v[i] < 0) {
+            *p++ = '-';
+            u = 0 - u;  // in uint64, so that INT64_MIN's magnitude fits
+        }
+        char digits[20];
+        int k = 0;
+        do {
+            digits[k++] = (char)('0' + u % 10);
+            u /= 10;
+        } while (u != 0);
+        while (k > 0) *p++ = digits[--k];
+        *p++ = '\n';
+    }
+    return (int64_t)(p - out);
 }
 
 }  // extern "C"

@@ -14,6 +14,7 @@ from collections.abc import Sequence
 import numpy as np
 import torch
 
+from seggroup_tpu_torch import native
 from seggroup_tpu_torch.data.synthetic import make_synthetic_scene
 from seggroup_tpu_torch.device import PhaseClock, resolve_device
 from seggroup_tpu_torch.models.seggroup import SegGroupGNN, Stage1Output
@@ -64,12 +65,16 @@ def dryrun_multichip(n_devices: int, device: str | torch.device = "cuda",
 
 def export_labels_txt(out_dir: str, stem: str, labels: np.ndarray) -> None:
     """One label a line into out_dir/<stem>.txt; the recorder's spans
-    "export.format" (the labels into text) and "export.write" (the file)."""
+    "export.format" (the labels into text, `native.format_int_lines`) and
+    "export.write" (the file), and its count "export.native" when the
+    native library formatted the file."""
     with profiling.span("export.format"):
-        body = "\n".join(map(str, np.asarray(labels, np.int64).tolist())) + "\n"
+        body = native.format_int_lines(labels)
+    if native.available():
+        profiling.count("export.native")
     with profiling.span("export.write"):
         os.makedirs(out_dir, exist_ok=True)
-        with open(os.path.join(out_dir, stem + ".txt"), "w") as f:
+        with open(os.path.join(out_dir, stem + ".txt"), "wb") as f:
             f.write(body)
 
 

@@ -11,7 +11,10 @@ side faster.
 Unlike the JAX loader, this one does not hide a failed build: the error is
 kept (`load_error()`), the first fallback call warns with it, and
 `available()` says which path runs. Nothing is built when the module is
-imported."""
+imported.
+
+`format_int_lines` (the label files' text) is the port's own: it has no
+counterpart in the JAX package's C++."""
 
 from __future__ import annotations
 
@@ -37,6 +40,8 @@ _lock = threading.Lock()
 def _bind(lib) -> None:
     c_f32 = ctypes.POINTER(ctypes.c_float)
     c_i32 = ctypes.POINTER(ctypes.c_int32)
+    c_i64 = ctypes.POINTER(ctypes.c_int64)
+    c_char = ctypes.POINTER(ctypes.c_char)
     i64, f32, i32 = ctypes.c_int64, ctypes.c_float, ctypes.c_int32
     sig = {
         "grid_subsample": (i64, [c_f32, i64, f32, c_f32, c_i32]),
@@ -49,6 +54,7 @@ def _bind(lib) -> None:
         "subm_windows": (i64, [c_i32, i64, i64, i64, c_i32, c_i32]),
         "elastic_interp": (None, [c_f32, i64, c_f32, f32, f32, c_f32, c_i32]),
         "voxelize_sorted": (i64, [c_f32, i64, f32, c_i32, c_i32, c_i32]),
+        "format_int_lines": (i64, [c_i64, i64, c_char]),
     }
     for name, (restype, argtypes) in sig.items():
         fn = getattr(lib, name)
@@ -391,3 +397,35 @@ def connected_components(edges: np.ndarray, n: int) -> np.ndarray:
         if ra != rb:
             parent[max(ra, rb)] = min(ra, rb)
     return np.array([find(i) for i in range(n)], np.int32)
+
+
+def format_int_lines(labels: np.ndarray) -> bytes:
+    """A 1-D integer array as text, one decimal integer a line, each line
+    ended by a newline: the bytes of "\\n".join(map(str, labels.tolist()))
+    + "\\n", so b"\\n" for an empty array."""
+    v = np.ascontiguousarray(labels, np.int64)
+    if v.ndim != 1:
+        raise ValueError(f"format_int_lines takes a 1-D array, not shape {v.shape}")
+    n = len(v)
+    lib = get_lib()
+    if lib is not None:
+        out = np.empty(21 * n + 1, np.uint8)  # the widest int64 and its newline
+        m = lib.format_int_lines(_ptr(v, ctypes.c_int64), n, _ptr(out, ctypes.c_char))
+        return out[:m].tobytes()
+    if n == 0:
+        return b"\n"
+    neg = v < 0
+    u = v.view(np.uint64)
+    mag = np.where(neg, ~u + np.uint64(1), u)  # INT64_MIN's magnitude fits in uint64
+    n_digits = np.ones(n, np.int64)
+    for k in range(1, 20):
+        n_digits += mag >= np.uint64(10 ** k)
+    newline = np.cumsum(n_digits + neg + 1) - 1  # each line's last byte
+    out = np.empty(int(newline[-1]) + 1, np.uint8)
+    out[newline] = ord("\n")
+    out[(newline - n_digits - 1)[neg]] = ord("-")
+    for k in range(int(n_digits.max())):
+        has = n_digits > k
+        out[newline[has] - 1 - k] = (mag[has] % np.uint64(10)).astype(np.uint8) + ord("0")
+        mag //= np.uint64(10)
+    return out.tobytes()

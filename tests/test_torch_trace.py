@@ -1,26 +1,29 @@
 """The port's span-and-counter recorder (seggroup_tpu_torch/utils/profiling.py)
-and the spans and counters placed in its layers: the export's split, the
-host's reads of the card, the grouping's union steps, the profiler's
-annotations, the prefetcher's threads, the device plan and the ranks' wait
-in the all-reduce. On the CPU, but for the last test, which runs a
+and the spans and counters placed in its layers: the export's split and its
+count of natively formatted files, the host's reads of the card, the
+grouping's union steps, the profiler's annotations, the prefetcher's
+threads, the device plan and the ranks' wait in the all-reduce. On the CPU, but for the last test, which runs a
 bench-shaped stage-1 forward and its export on the card with every implicit
 synchronisation made an error. No JAX."""
 
 from __future__ import annotations
 
 import os
+import shutil
 import sys
 import threading
 import time
+from contextlib import nullcontext
 
 import numpy as np
 import pytest
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
+from seggroup_tpu_torch import native
 from seggroup_tpu_torch.data.synthetic import BENCH_SCENE, make_synthetic_scene
 from seggroup_tpu_torch.device import PhaseClock
-from seggroup_tpu_torch.infer import infer_scenes
+from seggroup_tpu_torch.infer import export_scene, infer_scenes
 from seggroup_tpu_torch.models.seggroup import SegGroupGNN
 from seggroup_tpu_torch.ops import grouping as gr
 from seggroup_tpu_torch.utils import profiling
@@ -159,6 +162,29 @@ def _cases(model):
     out += [(f"straggler{s}", lambda s=s: model(_straggler_scene(s), mode="ins_infer"))
             for s in range(2)]
     return out + [("small_clusters", _small_clusters(0))]
+
+
+def test_export_counts_the_files_the_library_formatted(model, tmp_path):
+    """One scene's export into a bound dict: "count.export.native" is the
+    15 files with the native library and 0 under its numpy fallbacks, and
+    the files' bytes are the same."""
+    if shutil.which("c++") is None and shutil.which("g++") is None:
+        pytest.skip("no host C++ compiler: the library cannot be built")
+    assert native.available(), native.load_error()
+    out = model(_scenes(1)[0], mode="ins_infer")
+    native_counts, files = [], []
+    for root, fallback in (("library", False), ("fallback", True)):
+        sink: dict = {}
+        PhaseClock(None, sink)
+        with native.numpy_fallbacks() if fallback else nullcontext():
+            export_scene(str(tmp_path / root), "s", "ins_infer", out)
+        profiling.stop()
+        assert sink["count.export.format"] == sink["count.export.write"] == FILES_A_SCENE
+        native_counts.append(sink.get("count.export.native", 0))
+        d = tmp_path / root / "s" / "ins_infer"
+        files.append({p.name: p.read_bytes() for p in sorted(d.iterdir())})
+    assert native_counts == [FILES_A_SCENE, 0]
+    assert len(files[0]) == FILES_A_SCENE and files[0] == files[1]
 
 
 def test_union_count_equals_the_union_steps(model, monkeypatch):
