@@ -18,6 +18,7 @@ import numpy as np
 from seggroup_tpu_torch.data import transforms as T
 from seggroup_tpu_torch.models.pointgroup import IGNORE
 from seggroup_tpu_torch.sparse.plan import build_unet_plan
+from seggroup_tpu_torch.utils import profiling
 
 VALID_CLASS_IDS = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 14, 16, 24, 28, 33, 34, 36, 39)
 NYU40_TO_20 = np.full(41, IGNORE, np.int32)
@@ -139,7 +140,8 @@ def host_voxelize_plan(hb: PGHostBatch, voxel_size: float, voxel_cap: int,
     dropped and invalid points), and with `level_caps` the U-Net's pyramid
     plan over them as a fourth element (sparse/plan.build_unet_plan;
     windows on the first `window_levels` levels, none by default, as the
-    JAX trainer builds it)."""
+    JAX trainer builds it). The voxels past the cap are counted as
+    "count.pg.voxels_dropped" while the recorder is bound."""
     n_valid = int(hb.valid.sum())
     ic = np.floor(hb.coords[:n_valid] / voxel_size).astype(np.int32)
     if n_valid:
@@ -148,6 +150,7 @@ def host_voxelize_plan(hb: PGHostBatch, voxel_size: float, voxel_cap: int,
     vc, rank = np.unique(keys, axis=0, return_inverse=True)
     rank = rank.reshape(-1).astype(np.int32)
     m = min(len(vc), voxel_cap)
+    profiling.count("pg.voxels_dropped", len(vc) - m)
     vcoords = np.zeros((voxel_cap, 4), np.int32)
     vcoords[:m] = vc[:m]
     p2v = np.full(len(hb.coords), voxel_cap, np.int32)

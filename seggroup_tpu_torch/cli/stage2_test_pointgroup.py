@@ -54,10 +54,11 @@ def _dump_scene(dump_dir, name, masks, labels, confs, sem20, n):
                np.array(VALID_CLASS_IDS)[sem20[:n]], fmt="%d")
 
 
-def make_eval_model(m: int, voxel_cap: int, device, seed: int = 0) -> PointGroup:
+def make_eval_model(m: int, voxel_cap: int, device, seed: int = 0,
+                    score_cap: int | None = None) -> PointGroup:
     """The evaluation's model: 20 classes, 7 levels of voxel_cap >> i rows,
-    a ScoreNet over voxel_cap / 8 rows."""
-    return PointGroup(classes=20, m=m, score_cap=voxel_cap // 8,
+    a ScoreNet over `score_cap` rows (default voxel_cap / 8)."""
+    return PointGroup(classes=20, m=m, score_cap=score_cap or voxel_cap // 8,
                       level_caps=[voxel_cap >> i for i in range(7)], seed=seed, device=device)
 
 

@@ -28,9 +28,19 @@ resumed run draws what an unbroken one would; the JAX driver restarts its
 generator on resume instead.
 
     python -m seggroup_tpu_torch.cli.stage2_train_pointgroup --synthetic 8 --steps 50
+    python -m seggroup_tpu_torch.cli.stage2_train_pointgroup --synthetic 16 --batch_size 4 \\
+        --max_npoint 250000 --point_cap 655360 --voxel_cap 655360
     python -m seggroup_tpu_torch.cli.stage2_train_pointgroup --data_root ... --pseudo_root results/exp
     python -m seggroup_tpu_torch.cli.stage2_train_pointgroup --synthetic 2 --device cpu \\
         --steps 4 --prepare_steps 2 --save_freq 2 --point_cap 4096 --voxel_cap 4096 --m 8
+
+The second command is the published batch (config/pointgroup_run2_scannet.yaml):
+four whole scenes a step, each cropped only past `max_npoint` 250,000 points,
+under caps that hold four ScanNet-sized scenes (about 602 k points and 566 k
+voxels at 2 cm). The default caps (2^17 points, 2^16 voxels) hold only the
+first scene of a batch, and about 45% of its points get no voxel. Caps may
+be any multiple of 2^16 (the U-Net halves them six times); the ScoreNet's
+voxel cap `--score_cap` defaults to voxel_cap / 8.
 
 Runs on the card unless `--device cpu`. Writes checkpoints/<exp>/pointgroup,
 which cli/stage2_test_pointgroup.py restores. `--num_devices N` (default
@@ -74,6 +84,7 @@ from seggroup_tpu_torch.parallel.dp import (Mesh, build_pointgroup_dp_step, laun
 from seggroup_tpu_torch.solvers import ScheduledLR, make_optimizer
 from seggroup_tpu_torch.sparse.device_plan import build_unet_plan_device
 from seggroup_tpu_torch.sparse.plan import plan_to_device
+from seggroup_tpu_torch.utils import profiling
 from seggroup_tpu_torch.utils.checkpoint import CheckpointManager, lenient_restore
 from seggroup_tpu_torch.utils.logging import IOStream
 from seggroup_tpu_torch.utils.prefetch import HostPrefetcher
@@ -150,20 +161,29 @@ def unet_level_caps(voxel_cap: int) -> tuple[int, ...]:
 def make_train_batch(scene_tuple: Callable[[int], tuple], pool: Sequence[int],
                      rng: np.random.Generator, batch_size: int, point_cap: int, voxel_cap: int,
                      instance_cap: int, voxel_size: float, augment: bool,
-                     phase: PhaseClock | None = None, plan_mode: str = "device"):
+                     phase: PhaseClock | None = None, plan_mode: str = "device",
+                     max_points_per_scene: int | None = None):
     """The batch of `batch_size` scenes drawn from `pool` with `rng` (which
     also draws the augmentation and the crops): with plan_mode "device" the
     wire (a dict), with "host" (PGHostBatch, host_voxelize_plan's voxel
     coords, num, point2voxel and 7-level plan). `scene_tuple(i)` gives
-    scene i's (coords, colours, sem, ins). With `phase`, its two halves are
+    scene i's (coords, colours, sem, ins); a scene of more than
+    `max_points_per_scene` points is cropped to it (the reference's
+    `max_npoint`). With `phase`, its two halves are
     timed apart: "host batch" (the draw, the crops, the augmentation, the
     instance bookkeeping) and "voxelise" (the host voxelisation and the
-    wire or the plan)."""
+    wire or the plan). While the recorder is bound, the drawn scenes' points
+    that the batch left out (crops, the point cap) are counted as
+    "count.pg.points_dropped", and the voxels past `voxel_cap` as
+    "count.pg.voxels_dropped" (host_voxelize_plan)."""
     phase = phase or PhaseClock(torch.device("cpu"), None)
     with phase("host batch"):
         idx = rng.integers(0, len(pool), size=batch_size)
-        hb = make_pg_batch([scene_tuple(int(pool[int(i)])) for i in idx], point_cap,
-                           instance_cap, rng=rng, augment=augment)
+        tuples = [scene_tuple(int(pool[int(i)])) for i in idx]
+        hb = make_pg_batch(tuples, point_cap, instance_cap, rng=rng, augment=augment,
+                           max_points_per_scene=max_points_per_scene)
+        profiling.count("pg.points_dropped",
+                        sum(len(t[0]) for t in tuples) - int(hb.valid.sum()))
     with phase("voxelise"):
         if plan_mode == "device":
             vcoords, num, p2v = host_voxelize_plan(hb, voxel_size, voxel_cap)
@@ -174,15 +194,18 @@ def make_train_batch(scene_tuple: Callable[[int], tuple], pool: Sequence[int],
 def batch_on_device(raw, voxel_cap: int, dev: torch.device) -> tuple[tuple, dict]:
     """(unpack_pg_batch's tuple, the U-Net's plan) on `dev` from what
     make_train_batch returned: the wire unpacked and its plan built on
-    `dev`, or the host batch with its host plan moved there."""
-    if isinstance(raw, dict):
-        batch = unpack_pg_batch(raw, voxel_cap, dev)
-        st = batch[0]
-        return batch, build_unet_plan_device(st.coords, st.num, unet_level_caps(voxel_cap),
-                                             window_levels=0)
-    hb, (vcoords, num, p2v, plan) = raw
-    return (host_batch_on_device(hb, vcoords, num, p2v, voxel_cap, dev),
-            plan_to_device(plan, dev))
+    `dev`, or the host batch with its host plan moved there. While the
+    recorder is bound (utils/profiling.py), timed as the phase "plan",
+    fenced like train_step's phases."""
+    with profiling.span("plan", fence=dev):
+        if isinstance(raw, dict):
+            batch = unpack_pg_batch(raw, voxel_cap, dev)
+            st = batch[0]
+            return batch, build_unet_plan_device(st.coords, st.num,
+                                                 unet_level_caps(voxel_cap), window_levels=0)
+        hb, (vcoords, num, p2v, plan) = raw
+        return (host_batch_on_device(hb, vcoords, num, p2v, voxel_cap, dev),
+                plan_to_device(plan, dev))
 
 
 def main(argv: Sequence[str] | None = None):
@@ -190,8 +213,18 @@ def main(argv: Sequence[str] | None = None):
     add_common_args(p)
     p.add_argument("--pseudo_root", type=str, default=None)
     p.add_argument("--voxel_size", type=float, default=0.02)
-    p.add_argument("--point_cap", type=int, default=2 ** 17)
-    p.add_argument("--voxel_cap", type=int, default=2 ** 16)
+    p.add_argument("--point_cap", type=int, default=2 ** 17,
+                   help="points a batch holds; the default holds the first ScanNet-sized "
+                        "scene of a batch only (the published batch of 4 needs 655360)")
+    p.add_argument("--voxel_cap", type=int, default=2 ** 16,
+                   help="voxels a batch holds, a multiple of 2^16; at the default about 45%% "
+                        "of the first scene's points get no voxel (the published batch of 4 "
+                        "needs 655360)")
+    p.add_argument("--max_npoint", type=int, default=None,
+                   help="crop each scene to this many points (the reference's max_npoint, "
+                        "250000); default: crop only where the point cap runs out")
+    p.add_argument("--score_cap", type=int, default=None,
+                   help="voxels of the ScoreNet over every proposal (default voxel_cap / 8)")
     p.add_argument("--instance_cap", type=int, default=256)
     p.add_argument("--batch_size", type=int, default=4)
     p.add_argument("--lr", type=float, default=1e-3)
@@ -253,9 +286,11 @@ def _train(mesh: Mesh | None, args):
     def make_batch(rng, pool, augment):
         return make_train_batch(scene_tuple, pool, rng, args.batch_size, args.point_cap,
                                 args.voxel_cap, args.instance_cap, args.voxel_size, augment,
-                                plan_mode=args.plan_mode)
+                                plan_mode=args.plan_mode,
+                                max_points_per_scene=args.max_npoint)
 
-    model = make_eval_model(args.m, args.voxel_cap, dev, seed=args.seed)
+    model = make_eval_model(args.m, args.voxel_cap, dev, seed=args.seed,
+                            score_cap=args.score_cap)
     io.cprint("Network parameters: %.2fM" % (sum(x.numel() for x in model.parameters()) / 1e6))
     schedule = step_schedule(args.lr, args.lr_multiplier, args.lr_step_size)
     optimizer, scheduler = make_adam(model, schedule)

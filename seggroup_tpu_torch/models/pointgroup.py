@@ -9,7 +9,9 @@ The same forward as the flax `PointGroup`, in both of its modes:
     semantic scores and centre offsets;
   * dual clustering on the original and the offset-shifted coordinates as
     ONE radius-graph connected-components problem over the doubled point
-    set (ops/radius_cc.py, kernel K4 on the card);
+    set (ops/radius_cc.py, kernel K4 on the card), its sweep over ranges
+    of any length (`window=None`): exact at any density, where the JAX
+    model takes the fallback's nearest neighbours past 1,024 rows;
   * proposal re-voxelisation (centre by the proposal mean, fit to a
     fullscale^3 grid at up to score_scale) and the ScoreNet, a 2-level
     U-Net over the proposals' voxels, a per-proposal max and one score.
@@ -66,6 +68,7 @@ from seggroup_tpu_torch.sparse.conv import (build_subm_rulebook, inverse_conv_up
                                             strided_conv_down, strided_conv_down_planned)
 from seggroup_tpu_torch.sparse.device_plan import build_unet_plan_device
 from seggroup_tpu_torch.sparse.tensor import SparseTensor
+from seggroup_tpu_torch.utils import profiling
 
 IGNORE = -100
 BN_MOMENTUM, BN_EPSILON = 0.1, 1e-4  # SparseBatchNorm(0.1, 1e-4) of the flax model
@@ -267,12 +270,22 @@ class PointGroup(nn.Module):
     # --- stage 2: dual clustering and proposal voxelisation ----------------
 
     def _to_proposals(self, lab: torch.Tensor, obj: torch.Tensor):
+        """The proposals of one source: its first `max_proposals_per_source`
+        components by least index, those of at least `cluster_npoint_thre`
+        points. While the recorder is bound, the components of that size
+        that fell past the cap are counted as
+        "count.clustering.proposals_capped"."""
         p_src = self.max_proposals_per_source
         compact, num, sizes = compact_labels(lab, obj, p_src)
         keep = sizes >= self.cluster_npoint_thre
         prop = torch.where((compact < p_src) & keep[torch.clamp(compact, max=p_src - 1).long()],
                            compact, p_src)
         pvalid = keep & (torch.arange(p_src, device=lab.device) < num)
+        if profiling.bound():
+            n = lab.shape[0]
+            all_sizes = torch.bincount(torch.where(obj, lab, n).long(), minlength=n + 1)[:n]
+            big = (all_sizes >= self.cluster_npoint_thre).sum() - pvalid.sum()
+            profiling.count("clustering.proposals_capped", int(profiling.to_host(big)))
         return prop.to(torch.int32), pvalid
 
     @staticmethod
@@ -302,7 +315,10 @@ class PointGroup(nn.Module):
         points become proposals ([0, P/2) original, [P/2, P) shifted), each
         re-voxelised into its own fullscale^3 grid, shifted inside it by
         `jitter` (3,) in [0, 1) of the room left (none without it). No
-        gradient flows through it."""
+        gradient flows through it. While the recorder is bound, the
+        proposals are counted as "count.clustering.proposals", their voxels
+        as "count.scorenet.voxels" and those past `score_cap` as
+        "count.scorenet.voxels_dropped" (one read of the card)."""
         n = coords.shape[0]
         p_src = self.max_proposals_per_source
         p_total = 2 * p_src
@@ -311,7 +327,7 @@ class PointGroup(nn.Module):
         obj = obj2[:n]
         lab2 = semantic_radius_cc(pts2, self.cluster_radius, batch2, obj2, sem2,
                                   max_neighbors_fallback=self.cluster_neighbors,
-                                  fused_halves=True)
+                                  window=None, fused_halves=True)
         # a first-half component's least combined index is its least index;
         # a second-half one's is (least index + n)
         prop_o, pv_o = self._to_proposals(lab2[:n], obj)
@@ -351,6 +367,12 @@ class PointGroup(nn.Module):
         icoords = torch.clamp(scaled, 0, fullscale - 1e-3).to(torch.int32)
 
         vmap_s = voxelize(icoords, torch.where(fv, flat_prop, p_total), fv, self.score_cap)
+        if profiling.bound():
+            n_prop, n_vox = (int(x) for x in profiling.to_host(torch.stack(
+                [proposal_valid.sum(dtype=torch.int32), vmap_s.num_voxels])))
+            profiling.count("clustering.proposals", n_prop)
+            profiling.count("scorenet.voxels", min(n_vox, self.score_cap))
+            profiling.count("scorenet.voxels_dropped", max(n_vox - self.score_cap, 0))
         return Proposals(torch.stack([prop_a, prop_b]), proposal_valid,
                          proposal_valid.sum(dtype=torch.int32), icoords, vmap_s)
 

@@ -17,11 +17,19 @@ materialising neighbour lists:
   3. `_cc_loop` repeats sweep, hooking by segment min and two pointer jumps
      until nothing changes, reading one flag from the device per sweep.
 
+While the recorder is bound (utils/profiling.py), the sweeps are counted
+as "count.cc.sweeps", a loop that ran out of sweeps before its fixpoint as
+"count.cc.unconverged", and each run of the fallback as "count.cc.fallback".
+
 A range longer than `window` rows, a key space past int32 or an N that is
 not a multiple of 8 * tile takes the exact fallback (ops/knn.py's ball
 query + ops/cc.py). Both branches canonicalise labels to the minimum
 ORIGINAL index of each component, so they are interchangeable, and both
-equal the JAX side's labels exactly.
+equal the JAX side's labels exactly. `window=None` lifts the range rule
+(PointGroup's clustering): K4 and its plain version walk a range of any
+length, so the sweep is exact at any density, where the fallback keeps a
+point's `max_neighbors_fallback` nearest neighbours alone; the JAX
+package's window is its kernel's fixed 1,024-row fetch.
 
 The JAX side packs rows, keys and labels into a lane-major float32 slab and
 fetches a fixed, 128-aligned `window` of it per range; here they are plain
@@ -40,6 +48,7 @@ from seggroup_tpu_torch.ops.cc import hook_and_jump, semantic_connected_componen
 from seggroup_tpu_torch.ops.fma import sqdist_fma
 from seggroup_tpu_torch.ops.knn import ball_query_pair_fast
 from seggroup_tpu_torch.ops.segment_ops import invert_permutation, segment_min
+from seggroup_tpu_torch.utils import profiling
 
 TILE = 256
 WINDOW = 1024
@@ -62,9 +71,11 @@ class Prep(NamedTuple):
 
 
 def _prep(coords: torch.Tensor, radius: torch.Tensor, batch_ids: torch.Tensor,
-          valid: torch.Tensor, semantics: torch.Tensor, tile: int, window: int) -> Prep:
+          valid: torch.Tensor, semantics: torch.Tensor, tile: int,
+          window: int | None) -> Prep:
     """Sort by (batch, cell) key and find each (tile, group)'s row range.
-    `radius` is a () float32 tensor."""
+    `radius` is a () float32 tensor; `window` None takes ranges of any
+    length."""
     n = coords.shape[0]
     dev = coords.device
     batch_ids = batch_ids.to(torch.int32)
@@ -121,7 +132,8 @@ def _prep(coords: torch.Tensor, radius: torch.Tensor, batch_ids: torch.Tensor,
     hi = torch.searchsorted(skey, hi_key, right=True).to(torch.int32)
     # the reference fetches `window` rows from the 128-aligned base below lo
     base = lo & ~127
-    overflow = ((hi - base > window) & (t_last[:, None] >= 0)).any()
+    overflow = (torch.zeros((), dtype=torch.bool, device=dev) if window is None else
+                ((hi - base > window) & (t_last[:, None] >= 0)).any())
     return Prep(order.to(torch.int32), xyz.contiguous(), sem.contiguous(), skey.contiguous(),
                 lo.contiguous(), hi.contiguous(), offs, ok_range & ~overflow)
 
@@ -212,9 +224,12 @@ def _cc_loop(prep: Prep, r2: torch.Tensor, valid: torch.Tensor, tile: int = TILE
         new = torch.minimum(lab, sweep_fn(lab, prep, r2, tile))
         new = hook_and_jump(new, lab, s_valid, jumps)
         changed = bool((new != lab).any())
+        profiling.count("cc.sweeps")
         lab = new
         if not changed:
             break
+    else:
+        profiling.count("cc.unconverged")
     # sorted-domain representative -> original-domain member, per original row
     rep_orig = torch.cat([prep.order, prep.order.new_full((1,), n)])[
         torch.clamp(lab, max=n).long()]
@@ -225,7 +240,7 @@ def _cc_loop(prep: Prep, r2: torch.Tensor, valid: torch.Tensor, tile: int = TILE
 def semantic_radius_cc(coords: torch.Tensor, radius, batch_ids: torch.Tensor,
                        valid: torch.Tensor, semantics: torch.Tensor,
                        max_neighbors_fallback: int = 32, tile: int = TILE,
-                       window: int = WINDOW, fused_halves: bool = False,
+                       window: int | None = WINDOW, fused_halves: bool = False,
                        return_use_window: bool = False):
     """Connected components of the radius graph restricted to equal
     `semantics`, batch-local, over `valid` points. Returns (N,) int32
@@ -234,10 +249,13 @@ def semantic_radius_cc(coords: torch.Tensor, radius, batch_ids: torch.Tensor,
     () bool that chose the windowed sweep over the fallback (false when
     the shape rules the sweep out).
 
-    The fallback (a range past `window` rows, a key space past int32, or N
-    not a multiple of 8 * tile) is ops/knn.ball_query_pair_fast +
-    ops/cc.semantic_connected_components: the same partition up to the
-    ball query's `max_neighbors_fallback` nearest neighbours.
+    The fallback (a range past `window` rows, unless `window` is None; a
+    key space past int32; or N not a multiple of 8 * tile) is
+    ops/knn.ball_query_pair_fast + ops/cc.semantic_connected_components:
+    the same partition up to the ball query's `max_neighbors_fallback`
+    nearest neighbours. A `window` exists only for parity with the JAX
+    kernel's fixed fetch (its parity tests and the multichip dry run);
+    PointGroup's clustering passes None.
 
     fused_halves: the input is two equal stacked half-problems whose batch
     ids interleave (first half 2b, second half 2b + 1: PointGroup's dual
@@ -257,6 +275,7 @@ def semantic_radius_cc(coords: torch.Tensor, radius, batch_ids: torch.Tensor,
         return _canonicalize(torch.where(v, lab, m), m)
 
     def fallback():
+        profiling.count("cc.fallback")
         if not fused_halves:
             return one_fallback(coords, batch_ids, valid, semantics)
         h = n // 2
